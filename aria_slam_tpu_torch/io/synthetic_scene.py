@@ -1,0 +1,195 @@
+"""Synthetic scene renderer (the port's numpy copy of the JAX package's
+io/synthetic_scene.py: texture, trajectory, multi-depth scene layers,
+frame rendering, and the IMU samples derived from the trajectory).
+
+The reference warps textures with cv2.warpPerspective; this copy does
+the same inverse-homography warp in numpy (source coordinates quantised
+to 1/32 px and bilinear sampling with a zero border, as OpenCV does, and
+a nearest-neighbour coverage mask), so frames can be made where OpenCV
+is not installed. Frames agree with the reference's to about one grey
+level.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from aria_slam_tpu_torch.config import CameraConfig
+
+
+def _texture(size=2048, seed=0):
+    rng = np.random.default_rng(seed)
+    tex = np.full((size, size), 90.0, np.float32)
+    for _ in range(1800):
+        y, x = rng.integers(0, size - 60, 2)
+        h, w = rng.integers(8, 60, 2)
+        tex[y: y + h, x: x + w] = rng.uniform(10, 245)
+    gy = np.linspace(0, 25, size, dtype=np.float32)
+    tex += gy[:, None]
+    tex += rng.normal(0, 3.0, tex.shape).astype(np.float32)
+    return np.clip(tex, 0, 255).astype(np.uint8)
+
+
+def _rot_y(a):
+    c, s = np.cos(a), np.sin(a)
+    return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float64)
+
+
+def trajectory(t, span=2.0, depth=4.0, loop=True, kind="sweep", period=20.0):
+    """Smooth periodic path in front of the scene (world frame: camera
+    starts at the origin looking +z). Returns pos (..., 3) and R
+    world-from-camera (..., 3, 3)."""
+    t = np.asarray(t, np.float64)
+    w = 2 * np.pi / period
+    x = span * np.sin(w * t)
+    y = 0.35 * span * np.sin(2 * w * t)
+    z = 0.25 * np.sin(w * t)
+    pos = np.stack([x, y, z], -1)
+    if kind == "rotloop":
+        yaw = 0.6 * np.sin(3 * w * t)
+    else:
+        yaw = 0.12 * np.sin(w * t)
+    R = np.stack([_rot_y(a) for a in np.atleast_1d(yaw)], 0)
+    if np.isscalar(t) or t.ndim == 0:
+        return pos.reshape(3), R[0]
+    return pos, R
+
+
+def _perspective_transform(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
+    """3x3 homography mapping 4 src points onto 4 dst points (the
+    linear system cv2.getPerspectiveTransform solves)."""
+    a = np.zeros((8, 8))
+    b = np.zeros(8)
+    for i, ((x, y), (u, v)) in enumerate(zip(src.astype(np.float64),
+                                             dst.astype(np.float64))):
+        a[i] = [x, y, 1, 0, 0, 0, -x * u, -y * u]
+        a[i + 4] = [0, 0, 0, x, y, 1, -x * v, -y * v]
+        b[i], b[i + 4] = u, v
+    return np.append(np.linalg.solve(a, b), 1.0).reshape(3, 3)
+
+
+def _warp_plane(cam: CameraConfig, tex, corners_world, R_wc, pos):
+    """Warp a texture onto the quad `corners_world` ((4, 3), CCW) via the
+    exact plane homography. Returns (img, mask) uint8 or None if the quad
+    is behind the camera."""
+    R_cw = np.asarray(R_wc).T
+    t_cw = -R_cw @ np.asarray(pos)
+    K = cam.K.astype(np.float64)
+    pc = corners_world @ R_cw.T + t_cw
+    if np.any(pc[:, 2] < 0.2):
+        return None
+    uv = (pc[:, :2] / pc[:, 2:3]) * [K[0, 0], K[1, 1]] + [K[0, 2], K[1, 2]]
+    size = tex.shape[0]
+    tex_corners = np.array([[0, 0], [size - 1, 0], [size - 1, size - 1], [0, size - 1]],
+                           np.float32)
+    M = np.linalg.inv(_perspective_transform(tex_corners, uv.astype(np.float32)))
+
+    img = np.zeros((cam.height, cam.width), np.uint8)
+    mask = np.zeros((cam.height, cam.width), np.uint8)
+    # only the quad's bounding box (+2 px for rounding) can be covered
+    x0 = max(int(np.floor(uv[:, 0].min())) - 2, 0)
+    x1 = min(int(np.ceil(uv[:, 0].max())) + 3, cam.width)
+    y0 = max(int(np.floor(uv[:, 1].min())) - 2, 0)
+    y1 = min(int(np.ceil(uv[:, 1].max())) + 3, cam.height)
+    if x1 <= x0 or y1 <= y0:
+        return img, mask
+    ys, xs = np.mgrid[y0:y1, x0:x1].astype(np.float64)
+    den = M[2, 0] * xs + M[2, 1] * ys + M[2, 2]
+    inv = np.where(den != 0, 1.0 / np.where(den != 0, den, 1.0), 0.0)
+    sx = (M[0, 0] * xs + M[0, 1] * ys + M[0, 2]) * inv
+    sy = (M[1, 0] * xs + M[1, 1] * ys + M[1, 2]) * inv
+
+    # coverage: nearest source pixel inside the texture
+    nx, ny = np.rint(sx), np.rint(sy)
+    mask[y0:y1, x0:x1] = np.where((nx >= 0) & (nx < size) & (ny >= 0) & (ny < size),
+                                  255, 0)
+
+    # bilinear at 1/32-px quantised coordinates, zero outside the texture
+    qx = np.rint(np.clip(sx, -1e6, 1e6) * 32).astype(np.int64)
+    qy = np.rint(np.clip(sy, -1e6, 1e6) * 32).astype(np.int64)
+    ix, iy = qx >> 5, qy >> 5
+    ax, ay = (qx & 31) / 32.0, (qy & 31) / 32.0
+    texf = tex.astype(np.float64)
+
+    def tap(yy, xx):
+        ok = (xx >= 0) & (xx < size) & (yy >= 0) & (yy < size)
+        return np.where(ok, texf[np.clip(yy, 0, size - 1), np.clip(xx, 0, size - 1)], 0.0)
+
+    val = ((1 - ay) * ((1 - ax) * tap(iy, ix) + ax * tap(iy, ix + 1))
+           + ay * ((1 - ax) * tap(iy + 1, ix) + ax * tap(iy + 1, ix + 1)))
+    img[y0:y1, x0:x1] = np.clip(np.floor(val + 0.5), 0, 255).astype(np.uint8)
+    return img, mask
+
+
+def scene_layers(depth=4.0, seed=0):
+    """Multi-depth scene geometry: a far wall plus 15 textured panels at
+    staggered depths (a single plane makes the essential matrix
+    degenerate). Returns [(corners (4, 3), texture)] far to near."""
+    rng = np.random.default_rng(seed + 11)
+    layers = []
+
+    def quad(cx, cy, z, hw, hh):
+        return np.array([
+            [cx - hw, cy - hh, z],
+            [cx + hw, cy - hh, z],
+            [cx + hw, cy + hh, z],
+            [cx - hw, cy + hh, z],
+        ])
+
+    layers.append((quad(0.0, 0.0, depth + 5.0, 20.0, 20.0), _texture(2048, seed)))
+    zs = [depth + 2.0, depth + 1.0, depth, depth - 1.2, depth - 2.0]
+    for k, z in enumerate(zs):
+        for _ in range(3):
+            cx = rng.uniform(-5.0, 5.0)
+            cy = rng.uniform(-2.5, 2.5)
+            hw = rng.uniform(0.5, 1.3) * (z / depth)
+            hh = rng.uniform(0.4, 1.0) * (z / depth)
+            layers.append((quad(cx, cy, z, hw, hh),
+                           _texture(512, seed + 100 + 7 * k + abs(int(cx * 31)))))
+    return layers
+
+
+def render_frame(cam: CameraConfig, tex, pos, R_wc, depth=4.0,
+                 plane_half=8.0, layers=None):
+    """Render the scene from the camera by exact per-plane homographies;
+    the legacy single plane (z = depth) when `layers` is None."""
+    if layers is None:
+        corners = np.array([
+            [-plane_half, -plane_half, depth],
+            [plane_half, -plane_half, depth],
+            [plane_half, plane_half, depth],
+            [-plane_half, plane_half, depth],
+        ])
+        out = _warp_plane(cam, tex, corners, R_wc, pos)
+        if out is None:
+            return np.full((cam.height, cam.width), 70, np.uint8)
+        return np.where(out[1] > 0, out[0], 70).astype(np.uint8)
+
+    img = np.full((cam.height, cam.width), 70, np.uint8)
+    for corners, ltex in layers:  # far -> near: near overwrites far
+        out = _warp_plane(cam, ltex, corners, R_wc, pos)
+        if out is not None:
+            img = np.where(out[1] > 0, out[0], img)
+    return img
+
+
+def imu_samples(duration: float, imu_hz: float = 200.0, seed: int = 0,
+                depth: float = 4.0, traj: str = "sweep", period: float = 20.0):
+    """The reference generator's IMU stream for a trajectory: timestamps
+    (M,) s, specific force (M, 3) and body rates (M, 3), by central
+    differences, with its seeded noise."""
+    n_imu = int(duration * imu_hz)
+    ti = np.arange(1, n_imu + 1) / imu_hz
+    dt = 1e-4
+    pos_p, R_p = trajectory(ti - dt, depth=depth, kind=traj, period=period)
+    pos_c, R_c = trajectory(ti, depth=depth, kind=traj, period=period)
+    pos_n, R_n = trajectory(ti + dt, depth=depth, kind=traj, period=period)
+    acc_world = (pos_n - 2 * pos_c + pos_p) / dt**2
+    f_world = acc_world - np.array([0.0, 0.0, -9.81])
+    f_body = np.einsum("nji,nj->ni", R_c, f_world)  # R^T f
+    dR = np.einsum("nji,njk->nik", R_c, (R_n - R_p) / (2 * dt))  # R^T Rdot
+    gyro = np.stack([dR[:, 2, 1], dR[:, 0, 2], dR[:, 1, 0]], -1)
+    rng = np.random.default_rng(seed + 1)
+    f_body = f_body + rng.normal(0, 0.01, f_body.shape)
+    gyro = gyro + rng.normal(0, 0.001, gyro.shape)
+    return ti, f_body, gyro
