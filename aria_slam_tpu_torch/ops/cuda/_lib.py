@@ -14,6 +14,7 @@ Nothing here runs at import: the CPU tests import every module.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -32,15 +33,29 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+MAX_LEVELS = 16  # csrc/corner_kernel.cu MAX_LEVELS
+
+
+class CornerLevels(ctypes.Structure):
+    """csrc/corner_kernel.cu's level table, passed by value: per level the
+    input and output pointers, H and W; the entry point fills first_tile."""
+    _fields_ = [("img", ctypes.c_void_p * MAX_LEVELS),
+                ("out", ctypes.c_void_p * MAX_LEVELS),
+                ("height", ctypes.c_int * MAX_LEVELS),
+                ("width", ctypes.c_int * MAX_LEVELS),
+                ("first_tile", ctypes.c_int * (MAX_LEVELS + 1)),
+                ("num_levels", ctypes.c_int)]
+
+
 # library name -> (source file, {C function: argument types})
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SOURCES = {
     "corner": ("corner_kernel.cu",
-               {"corner_rank_map_launch": (_P, _P, _I, _I, _I, _F, _F, _I, _P)}),
+               {"corner_rank_maps_launch": (CornerLevels, _I, _F, _F, _I, _P)}),
     "patch": ("patch_kernel.cu",
               {"extract_patches_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P)}),
     "match": ("match_kernel.cu",
-              {"match_top2_launch": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P)}),
+              {"match_top2_launch": (_P,) * 8 + (_I, _I, _I, _I, _I, _P)}),
 }
 
 
@@ -129,6 +144,12 @@ def library(name: str) -> ctypes.CDLL:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check_launch(code: int, what: str) -> None:

@@ -1,8 +1,11 @@
 """Corner rank map: FAST-9 + 3x3 NMS + Harris in one pass (counterpart
 of the JAX package's ops/pallas/corner_kernel.py).
 
-`corner_rank_map_batched` launches csrc/corner_kernel.cu for a CUDA
-tensor and runs `corner_rank_map_plain` for a CPU tensor. Both compute
+`corner_rank_maps` takes every pyramid level at once: for CUDA tensors
+it makes one launch of csrc/corner_kernel.cu for all levels and frames,
+for CPU tensors it runs `corner_rank_map_plain` level by level.
+`corner_rank_map_batched` (the JAX package's name) is its one-level
+case. Both versions compute
 on the image edge-replicated in every direction, as the TPU kernel does
 (its 8-px edge halo and edge-padded alignment columns); the zero-padded
 `ops.fast.rank_map_xla` differs from them only within a few pixels of
@@ -89,29 +92,52 @@ def corner_rank_map_plain(imgs: torch.Tensor, threshold: float,
     return torch.where(is_corner, harris, NEG_INF)
 
 
-def corner_rank_map_batched(imgs: torch.Tensor, threshold: float,
-                            harris_block: int = 7,
-                            harris_k: float = 0.04) -> torch.Tensor:
-    """(B, H, W) float32 images -> (B, H, W) rank maps: the Harris
+def corner_rank_maps(levels, threshold: float, harris_block: int = 7,
+                     harris_k: float = 0.04) -> list:
+    """List of (B, H_l, W_l) float32 images (one B, e.g. the levels of
+    `build_pyramid`) -> their (B, H_l, W_l) rank maps: the Harris
     response where an NMS'd FAST corner fires, -3e38 elsewhere."""
-    if imgs.device.type == "cpu":
-        return corner_rank_map_plain(imgs, threshold, harris_block, harris_k)
-    _lib.require_cuda(imgs, "imgs", torch.float32, (None, None, None))
+    levels = list(levels)
+    if all(lvl.device.type == "cpu" for lvl in levels):
+        return [corner_rank_map_plain(lvl, threshold, harris_block, harris_k)
+                for lvl in levels]
     r = harris_block // 2
     if harris_block % 2 != 1 or not 1 <= r <= MAX_BOX_R:
         raise ValueError(f"harris_block must be odd and at most {2 * MAX_BOX_R + 1}, "
                          f"got {harris_block}")
-    b, h, w = imgs.shape
-    out = torch.empty_like(imgs)
-    code = _lib.library("corner").corner_rank_map_launch(
-        imgs.data_ptr(), out.data_ptr(), b, h, w, float(threshold),
-        float(harris_k), r, _lib.stream_ptr(imgs.device))
+    if len(levels) > _lib.MAX_LEVELS:
+        raise ValueError(f"the corner kernel takes at most {_lib.MAX_LEVELS} levels, "
+                         f"got {len(levels)}")
+    _lib.require_cuda(levels[0], "levels[0]", torch.float32, (None, None, None))
+    b = levels[0].shape[0]
+    table = _lib.CornerLevels(num_levels=len(levels))
+    outs = []
+    for i, lvl in enumerate(levels):
+        _lib.require_cuda(lvl, f"levels[{i}]", torch.float32, (b, None, None))
+        if lvl.device != levels[0].device:
+            raise ValueError("all levels must lie on the same device")
+        out = torch.empty_like(lvl)
+        table.img[i], table.out[i] = lvl.data_ptr(), out.data_ptr()
+        table.height[i], table.width[i] = lvl.shape[1], lvl.shape[2]
+        outs.append(out)
+    if b == 0:
+        return outs
+    code = _lib.library("corner").corner_rank_maps_launch(
+        table, b, float(threshold), float(harris_k), r, _lib.stream_ptr(levels[0].device))
     _lib.check_launch(code, "corner")
-    corner_rank_map_batched.launches += 1
-    return out
+    corner_rank_maps.launches += 1
+    return outs
 
 
-corner_rank_map_batched.launches = 0
+corner_rank_maps.launches = 0
+
+
+def corner_rank_map_batched(imgs: torch.Tensor, threshold: float,
+                            harris_block: int = 7,
+                            harris_k: float = 0.04) -> torch.Tensor:
+    """(B, H, W) float32 images -> (B, H, W) rank maps: one level of
+    `corner_rank_maps`."""
+    return corner_rank_maps([imgs], threshold, harris_block, harris_k)[0]
 
 
 def corner_rank_map(img: torch.Tensor, threshold: float, harris_block: int = 7,

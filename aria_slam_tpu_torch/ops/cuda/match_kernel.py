@@ -2,7 +2,8 @@
 ops/pallas/match_kernel.py).
 
 `match_top2_batched` launches csrc/match_kernel.cu for CUDA tensors and
-runs `match_top2_plain` for CPU tensors. The plain version is the
+runs `match_top2_plain` for CPU tensors; `split_plan` says how the
+kernel cuts the train columns across blocks. The plain version is the
 reference formulation itself: the Hamming matrix as a float32 product of
 the 0/1 bits (exact: every sum is an integer <= 256) and the packed
 (distance << 20 | index) min-reductions that fix the tie and sentinel
@@ -18,6 +19,9 @@ from aria_slam_tpu_torch.ops.cuda import _lib
 BIG = 1 << 20
 _CLIP = 1 << 10   # > max Hamming (256); marks invalid entries
 _IDX_BITS = 20    # supports up to 2^20 train columns
+_QUERY_BLOCK = 128  # queries per block (csrc QB)
+_TILE_COLS = 64    # train rows per shared-memory stage (csrc TT)
+_BLOCKS_PER_SM = 2  # blocks the column split aims at per SM
 
 
 def hamming_matrix(desc_q: torch.Tensor, desc_t: torch.Tensor,
@@ -63,6 +67,18 @@ def match_top2_plain(desc_q: torch.Tensor, desc_t: torch.Tensor,
     return top2_min(hamming_matrix(desc_q, desc_t, valid_t))
 
 
+def split_plan(n: int, kq: int, kt: int, sms: int):
+    """(slices, slice_len) for the kernel: the train columns cut into
+    slices of whole 64-row tiles, so that the n * ceil(kq / 128) query
+    blocks times the slices give each of `sms` SMs about two blocks. No
+    slice is empty; a large n gets one slice."""
+    blocks = n * -(-kq // _QUERY_BLOCK)
+    want = max(1, -(-_BLOCKS_PER_SM * sms // blocks))
+    tiles = -(-kt // _TILE_COLS)
+    slice_len = -(-tiles // min(want, tiles)) * _TILE_COLS
+    return -(-kt // slice_len), slice_len
+
+
 def match_top2_batched(desc_q: torch.Tensor, desc_t: torch.Tensor,
                        valid_t: torch.Tensor):
     """(N, Kq, 256), (N, Kt, 256) {0,1} int8 + (N, Kt) bool ->
@@ -82,13 +98,20 @@ def match_top2_batched(desc_q: torch.Tensor, desc_t: torch.Tensor,
         raise ValueError("the train set must hold at least one descriptor")
     if desc_q.data_ptr() % 16 or desc_t.data_ptr() % 16:
         raise ValueError("descriptor tensors must be 16-byte aligned")
-    outs = [torch.empty((n, kq), dtype=torch.int32, device=desc_q.device)
-            for _ in range(3)]
-    if kq == 0:
+    dev = desc_q.device
+    outs = [torch.empty((n, kq), dtype=torch.int32, device=dev) for _ in range(3)]
+    if kq == 0 or n == 0:
         return tuple(outs)
+    slices, slice_len = split_plan(n, kq, kt, _lib.sm_count(dev.index))
+    if slices * slice_len > 1 << _IDX_BITS:  # padded column indices pack into 20 bits
+        raise ValueError(f"too many train columns for the match kernel: {kt}")
+    # per-slice partial (best, second) keys, merged by the kernel's second pass
+    parts = [torch.empty((n, slices, kq), dtype=torch.int32, device=dev)
+             for _ in range(2 if slices > 1 else 0)]
     code = _lib.library("match").match_top2_launch(
         desc_q.data_ptr(), desc_t.data_ptr(), valid_t.data_ptr(),
-        *(o.data_ptr() for o in outs), n, kq, kt, _lib.stream_ptr(desc_q.device))
+        *(o.data_ptr() for o in outs), *([p.data_ptr() for p in parts] or [None, None]),
+        n, kq, kt, slices, slice_len, _lib.stream_ptr(dev))
     _lib.check_launch(code, "match")
     match_top2_batched.launches += 1
     return tuple(outs)

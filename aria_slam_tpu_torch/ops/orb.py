@@ -1,8 +1,9 @@
 """ORB front end: image(s) -> Features (counterpart of the JAX package's
 ops/orb.py).
 
-Per pyramid level: the corner kernel's rank map, the 31-px border mask
-and a top-k select the level's keypoints; the patch kernel cuts a 39x39
+One corner kernel launch gives the rank maps of every pyramid level.
+Per level: the 31-px border mask and a top-k select the level's
+keypoints from its rank map; the patch kernel cuts a 39x39
 patch per keypoint from the 5x5-blurred level; one matmul gives the
 rBRIEF bits and the orientation. Batched over (B, H, W) frames; the
 online pipeline uses B = 1. Feature budgets per level follow ORB's
@@ -18,7 +19,7 @@ import torch
 from aria_slam_tpu_torch.config import OrbConfig
 from aria_slam_tpu_torch.core.types import Features
 from aria_slam_tpu_torch.ops import brief
-from aria_slam_tpu_torch.ops.cuda.corner_kernel import corner_rank_map_batched
+from aria_slam_tpu_torch.ops.cuda.corner_kernel import corner_rank_maps
 from aria_slam_tpu_torch.ops.cuda.patch_kernel import extract_patches
 from aria_slam_tpu_torch.ops.pyramid import build_pyramid
 
@@ -32,12 +33,11 @@ def features_per_level(num_features: int, num_levels: int, scale_factor: float) 
     return ns
 
 
-def _detect_level_batched(imgs, threshold, top_k, border, harris_block):
-    """(B, H, W) -> xy (B, K, 2), response (B, K), valid (B, K)."""
-    bsz, h, w = imgs.shape
-    rank = corner_rank_map_batched(imgs, threshold, harris_block)
-    ys = torch.arange(h, device=imgs.device)[:, None]
-    xs = torch.arange(w, device=imgs.device)[None, :]
+def _select_keypoints(rank, top_k, border):
+    """(B, H, W) rank map -> xy (B, K, 2), response (B, K), valid (B, K)."""
+    bsz, h, w = rank.shape
+    ys = torch.arange(h, device=rank.device)[:, None]
+    xs = torch.arange(w, device=rank.device)[None, :]
     in_border = (ys >= border) & (ys < h - border) & (xs >= border) & (xs < w - border)
     rank = torch.where(in_border[None], rank, float("-inf"))
     # exact top-k; the reference's approx_max_k is exact on the CPU and
@@ -56,12 +56,12 @@ def extract_batch(imgs: torch.Tensor, cfg: OrbConfig) -> Features:
     quotas = features_per_level(cfg.num_features, cfg.num_levels, cfg.scale_factor)
     pattern = brief.brief_pattern(cfg.descriptor_bits, cfg.patch_size, cfg.brief_seed)
 
+    ranks = corner_rank_maps(levels, cfg.fast_threshold, cfg.harris_block_size)
+
     parts = {k: [] for k in ("xy", "resp", "angle", "oct", "size", "desc", "valid")}
-    for lvl, (limgs, quota) in enumerate(zip(levels, quotas)):
+    for lvl, (limgs, rank, quota) in enumerate(zip(levels, ranks, quotas)):
         scale = cfg.scale_factor**lvl
-        xy, resp, valid = _detect_level_batched(
-            limgs, cfg.fast_threshold, quota, cfg.edge_threshold,
-            cfg.harris_block_size)
+        xy, resp, valid = _select_keypoints(rank, quota, cfg.edge_threshold)
         blurred = brief.smooth_for_brief(limgs).contiguous()
         patches = extract_patches(blurred, xy, brief.PATCH_R)  # (B, K, 39, 39)
         desc, ang = brief.describe_and_orient(patches.reshape(bsz, quota, -1), pattern)

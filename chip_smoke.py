@@ -12,18 +12,22 @@ Phases, one line each; any failure raises and exits non-zero:
               and prints nvcc's -Xptxas -v report.
 3. kernels -- each kernel against its plain PyTorch version on the card,
               at the shapes of the online VO slice (752x480, 8 levels,
-              2000 features), with the device times (CUDA graph replay,
-              launch cost excluded) of the kernel, the plain version and,
-              where one exists, a single PyTorch call computing the same
-              function (timed here, never used by the port), beside the
-              least time the card could take and the kernel's time with
-              its launch cost.
+              2000 features): the corner maps bit-equal at B = 1 and 3,
+              the match results bit-exact on nine cases up to N = 256
+              pairs of 2000x2000, the patches exactly equal. Device times
+              (CUDA graph replay, launch cost excluded) of the kernel, the
+              plain version and, where one exists, a single PyTorch call
+              computing the same function (timed here, never used by the
+              port), beside the least time the card could take and the
+              kernel's time with its launch cost; the corner kernel also
+              at B = 33 frames, the match kernel also at N = 4 and 256.
 4. slice   -- 40 rendered frames through the port's own entry points
               (factory.create_gpu, SlamPipeline.process_imu /
               process_frame / finalize) in the VO-only configuration at
-              full EuRoC width; checks the kernels' launch counts, the VO
-              success share and the Sim3 ATE against the rendered ground
-              truth.
+              full EuRoC width; checks the kernels' launch counts (one
+              corner launch, eight patch launches and one match launch a
+              frame), the VO success share and the Sim3 ATE against the
+              rendered ground truth.
 
 The line before the last holds the card's name and power limit as
 nvidia-smi reports them, the one before it the kernels' JSON record, and
@@ -47,12 +51,14 @@ HBM_BYTES_PER_MS = 3.35e12 / 1e3
 F32_OPS_PER_MS = 67e12 / 1e3
 INT8_OPS_PER_MS = 1979e12 / 1e3
 
-# float32 operations per output pixel of the corner rank map: FAST-9 (16
-# ring differences, 16 negations, 16 arcs x 16 minima, 2 x 15 arc maxima,
-# 3 for the score), 3x3 NMS (9 maxima, 2 compares), Sobel (2 x 7), the
-# three gradient products, separable 7x7 box sums of three maps (3 x 12),
-# Harris (7) and the final select (1)
-CORNER_OPS_PER_PX = 16 + 16 + 256 + 30 + 3 + 11 + 14 + 3 + 36 + 7 + 1
+# float32 operations per output pixel of the corner rank map as the plain
+# version does them: FAST-9 (16 ring differences, 16 negations, 16 arcs x
+# 16 minima, 2 x 15 arc maxima, 3 for the score), 3x3 NMS (9 maxima, 2
+# compares), Sobel (2 x 7), the three gradient products, separable 7x7 box
+# sums of three maps (3 x 12), Harris (7) and the final select (1). More
+# than the function needs (see corner_ops); kept to compare with the
+# bound of earlier records only.
+PLAIN_CORNER_OPS_PER_PX = 16 + 16 + 256 + 30 + 3 + 11 + 14 + 3 + 36 + 7 + 1
 
 NUM_FRAMES = 40
 FPS = 10.0
@@ -117,6 +123,43 @@ def smi_line() -> str:
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
 
 
+def ptxas_lines(report: str) -> list:
+    """nvcc's -Xptxas -v lines that name a kernel (mangled) and give its
+    registers, shared memory and spills."""
+    return [ln.strip() for ln in report.splitlines()
+            if "Function properties" in ln or "registers" in ln or "spill" in ln]
+
+
+def corner_ops(levels, ranks, threshold: float, box_r: int) -> int:
+    """Float32 operations that the rank maps `ranks` of `levels` need on
+    this data, done the cheapest way known, each step exact: at every pixel
+    the compass test (4 ring differences, 8 compares), which gives most
+    pixels a score of exactly 0; at the pixels that pass it the rest of
+    FAST-9 (12 differences, per polarity 64 doubling-window and 15 arc
+    min/max ops, one negation, 3 for the score); at the NMS survivors the
+    NMS (9 maxima, 2 compares) and Harris, the cheaper of a dense pass
+    (Sobel 14, products 3, separable box sums 3 x 4r, Harris 7 a pixel) and
+    one window a survivor (Sobel and products at (2r+1)^2 pixels, three box
+    sums, Harris). A positive score that NMS drops is not counted."""
+    from aria_slam_tpu_torch.ops.cuda.corner_kernel import _edge_pad
+
+    win = (2 * box_r + 1) ** 2
+    ops = 0
+    for lvl, rank in zip(levels, ranks):
+        h, w = lvl.shape[-2:]
+        p = _edge_pad(lvl, 3)
+        c = p[:, 3: 3 + h, 3: 3 + w]
+        n = [p[:, 3 + dy: 3 + dy + h, 3 + dx: 3 + dx + w] - c
+             for dy, dx in ((-3, 0), (0, 3), (3, 0), (0, -3))]
+        cand = ((sum((x > threshold).int() for x in n) >= 2)
+                | (sum((x < -threshold).int() for x in n) >= 2))
+        n_cand, n_corner = int(cand.sum()), int((rank > -1e38).sum())
+        ops += 12 * lvl.numel() + (12 + 2 * (64 + 15) + 4) * n_cand + 11 * n_corner
+        ops += min((14 + 3 + 12 * box_r + 7) * lvl.numel(),
+                   (17 * win + 3 * (win - 1) + 7) * n_corner)
+    return ops
+
+
 def render_frames(cam, n: int, fps: float):
     """n frames of the multi-depth synthetic scene along the sweep
     trajectory, their ground-truth positions, and the 200 Hz IMU stream."""
@@ -133,6 +176,7 @@ def render_frames(cam, n: int, fps: float):
 
 # --------------------------------------------------------------- kernels
 def check_match(dev, rng):
+    from aria_slam_tpu_torch.ops.cuda import _lib
     from aria_slam_tpu_torch.ops.cuda import match_kernel as mk
 
     def case(n, kq, kt, invalid=0.1, dup=False, all_invalid=False):
@@ -147,9 +191,17 @@ def check_match(dev, rng):
         return (torch.from_numpy(q).to(dev), torch.from_numpy(t).to(dev),
                 torch.from_numpy(v).to(dev))
 
+    def case_on_card(n, kq, kt, invalid=0.1, seed=1):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return (torch.randint(0, 2, (n, kq, 256), generator=g, device=dev, dtype=torch.int8),
+                torch.randint(0, 2, (n, kt, 256), generator=g, device=dev, dtype=torch.int8),
+                torch.rand((n, kt), generator=g, device=dev) >= invalid)
+
     cases = {"N1": case(1, 2000, 2000), "N4": case(4, 2000, 2000),
              "ragged": case(2, 300, 777), "dups": case(1, 500, 600, dup=True),
-             "all_invalid": case(1, 70, 130, all_invalid=True), "kt1": case(3, 65, 1, 0.0)}
+             "all_invalid": case(1, 70, 130, all_invalid=True), "kt1": case(3, 65, 1, 0.0),
+             "kq5": case(3, 5, 640), "kt1001": case(2, 700, 1001),
+             "N256": case_on_card(256, 2000, 2000)}
     for name, args in cases.items():
         got = mk.match_top2_batched(*args)
         want = mk.match_top2_plain(*args)
@@ -158,38 +210,57 @@ def check_match(dev, rng):
             if not torch.equal(g, w):
                 raise AssertionError(f"match {name}: {what} differs from the plain version "
                                      f"at {int((g != w).sum())} queries")
+        del got, want
+        torch.cuda.empty_cache()  # the plain N = 256 run holds ~20 GB of temporaries
+    sms = _lib.sm_count(dev.index)
+    rows, plans = {}, {}
+    for name in ("N1", "N4", "N256"):
+        q, t, v = cases[name]
+        n, kq, kt = q.shape[0], q.shape[1], t.shape[1]
+        slices, _ = mk.split_plan(n, kq, kt, sms)
+        plans[name] = dict(slices=slices, blocks=n * -(-kq // mk._QUERY_BLOCK) * slices)
+        big = n > 16
+        ms = graph_ms(lambda: mk.match_top2_batched(q, t, v),
+                      iters=5 if big else 20, replays=4 if big else 10)
+        b_ms, by = bound(q.numel() + t.numel() + v.numel() + 3 * 4 * n * kq,
+                         2.0 * n * kq * kt * 256, INT8_OPS_PER_MS)
+        rows[name] = dict(ms=ms, bound_ms=b_ms, bound_by=by)
     q, t, v = cases["N1"]
-    ms = graph_ms(lambda: mk.match_top2_batched(q, t, v))
     launch_ms = cuda_ms(lambda: mk.match_top2_batched(q, t, v), iters=50)
     plain_ms = graph_ms(lambda: mk.match_top2_plain(q, t, v))
-    n4_ms = graph_ms(lambda: mk.match_top2_batched(*cases["N4"]))
-    kq, kt = q.shape[1], t.shape[1]
-    bound_ms, by = bound(q.numel() + t.numel() + v.numel() + 3 * 4 * kq,
-                         2.0 * kq * kt * 256, INT8_OPS_PER_MS)
-    log("kernels", f"match: bit-exact on {len(cases)} cases; N=1 2000x2000 "
-                   f"kernel {ms:.4f} ms ({launch_ms:.4f} ms with launch cost), plain "
-                   f"{plain_ms:.4f} ms, N=4 kernel {n4_ms:.4f} ms, bound {bound_ms:.5f} ms ({by})")
+    log("kernels", f"match: bit-exact on {len(cases)} cases; plain N=1 {plain_ms:.4f} ms; "
+                   + "; ".join(f"{k} 2000x2000 kernel {r['ms']:.4f} ms (bound {r['bound_ms']:.5f} "
+                               f"ms, {r['bound_by']}; {plans[k]['slices']} slices, "
+                               f"{plans[k]['blocks']} blocks)" for k, r in rows.items())
+                   + f"; N1 with launch cost {launch_ms:.4f} ms")
     return dict(name="match_top2", route="cuda",
                 source="aria_slam_tpu_torch/csrc/match_kernel.cu",
                 replaces="aria_slam_tpu/ops/pallas/match_kernel.py:56",
-                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=by, library_ms=None, launch_ms=launch_ms), {"match_n4_ms": n4_ms}
+                max_abs_err=0.0, ms=rows["N1"]["ms"], plain_ms=plain_ms,
+                bound_ms=rows["N1"]["bound_ms"], bound_by=rows["N1"]["bound_by"],
+                library_ms=None, launch_ms=launch_ms), {"match": rows, "match_plans": plans}
+
+
+def pyramid_levels(frames, cfg, dev):
+    """The ORB pyramid of `frames`: a list of (B, H_l, W_l) level images."""
+    from aria_slam_tpu_torch.ops.pyramid import build_pyramid
+
+    imgs = torch.from_numpy(np.stack(frames).astype(np.float32)).to(dev)
+    return [lvl.contiguous() for lvl in build_pyramid(imgs, cfg.num_levels, cfg.scale_factor)]
 
 
 def level_inputs(frames, cfg, dev):
     """Per pyramid level: the (B, H, W) level images, their 5x5-blurred
     copies and the level's keypoints from the ORB detector, B frames."""
     from aria_slam_tpu_torch.ops import brief, orb
-    from aria_slam_tpu_torch.ops.pyramid import build_pyramid
+    from aria_slam_tpu_torch.ops.cuda.corner_kernel import corner_rank_maps
 
-    imgs = torch.from_numpy(np.stack(frames).astype(np.float32)).to(dev)
-    levels = build_pyramid(imgs, cfg.num_levels, cfg.scale_factor)
+    levels = pyramid_levels(frames, cfg, dev)
+    ranks = corner_rank_maps(levels, cfg.fast_threshold, cfg.harris_block_size)
     quotas = orb.features_per_level(cfg.num_features, cfg.num_levels, cfg.scale_factor)
     out = []
-    for lvl, q in zip(levels, quotas):
-        lvl = lvl.contiguous()
-        xy, _, _ = orb._detect_level_batched(lvl, cfg.fast_threshold, q,
-                                             cfg.edge_threshold, cfg.harris_block_size)
+    for lvl, rank, q in zip(levels, ranks, quotas):
+        xy, _, _ = orb._select_keypoints(rank, q, cfg.edge_threshold)
         out.append((lvl, brief.smooth_for_brief(lvl).contiguous(), xy.contiguous()))
     return out
 
@@ -197,47 +268,48 @@ def level_inputs(frames, cfg, dev):
 def check_corner(frames, cfg, dev):
     from aria_slam_tpu_torch.ops.cuda import corner_kernel as ck
 
-    worst = 0.0
-    per_level = []
+    thr, hb = cfg.fast_threshold, cfg.harris_block_size
+    corners = []
     for b in (3, 1):
-        for lvl, _, _ in level_inputs(frames[:b], cfg, dev):
-            got = ck.corner_rank_map_batched(lvl, cfg.fast_threshold, cfg.harris_block_size)
-            want = ck.corner_rank_map_plain(lvl, cfg.fast_threshold, cfg.harris_block_size)
-            mg, mw = got > -1e38, want > -1e38
-            if not torch.equal(mg, mw):
-                raise AssertionError(f"corner B={b} {tuple(lvl.shape)}: masks differ at "
-                                     f"{int((mg != mw).sum())} pixels")
-            rel = ((got[mg] - want[mg]).abs() / want[mg].abs().clamp(min=1.0)).max() \
-                if mg.any() else torch.zeros(())
-            err = float((got[mg] - want[mg]).abs().max()) if mg.any() else 0.0
-            if float(rel) >= 1e-4:
-                raise AssertionError(f"corner B={b} {tuple(lvl.shape)}: Harris rel diff {float(rel)}")
-            worst = max(worst, err)
+        levels = pyramid_levels(frames[:b], cfg, dev)
+        for lvl, got in zip(levels, ck.corner_rank_maps(levels, thr, hb)):
+            want = ck.corner_rank_map_plain(lvl, thr, hb)
+            if not torch.equal(got, want):
+                mg, mw = got > -1e38, want > -1e38
+                both = (got - want)[mg & mw].abs()
+                raise AssertionError(f"corner B={b} {tuple(lvl.shape)}: not bit-equal; masks "
+                                     f"differ at {int((mg != mw).sum())} pixels, max abs diff "
+                                     f"{float(both.max()) if both.numel() else 0.0}")
             if b == 1:
-                per_level.append((lvl, int(mg.sum())))
-    ms = launch_ms = plain_ms = bytes_ = ops = 0.0
-    for lvl, _ in per_level:
-        def kernel():
-            return ck.corner_rank_map_batched(lvl, cfg.fast_threshold, cfg.harris_block_size)
-
-        ms += graph_ms(kernel)
-        launch_ms += cuda_ms(kernel, iters=50)
-        plain_ms += graph_ms(lambda: ck.corner_rank_map_plain(lvl, cfg.fast_threshold,
-                                                              cfg.harris_block_size),
-                             iters=5, replays=4)
-        bytes_ += 2 * 4 * lvl.numel()
-        ops += CORNER_OPS_PER_PX * lvl.numel()
-    bound_ms, by = bound(bytes_, ops, F32_OPS_PER_MS)
-    log("kernels", f"corner: masks identical, Harris rel diff < 1e-4 on 8 levels x B=1,3 "
-                   f"(max abs {worst:.3g}); per frame kernel {ms:.4f} ms ({launch_ms:.4f} ms with "
-                   f"launch cost), plain {plain_ms:.4f} ms, "
-                   f"bound {bound_ms:.5f} ms ({by}); corners per level "
-                   f"{[c for _, c in per_level]}")
+                corners.append(int((want > -1e38).sum()))
+    rows = {}
+    for b in (1, 33):
+        levels = pyramid_levels(frames[:b], cfg, dev)
+        px = sum(lvl.numel() for lvl in levels)
+        ms = graph_ms(lambda: ck.corner_rank_maps(levels, thr, hb))
+        ops = corner_ops(levels, ck.corner_rank_maps(levels, thr, hb), thr, hb // 2)
+        b_ms, by = bound(2 * 4 * px, ops, F32_OPS_PER_MS)
+        plain_b_ms, _ = bound(2 * 4 * px, PLAIN_CORNER_OPS_PER_PX * px, F32_OPS_PER_MS)
+        rows[f"B{b}"] = dict(ms=ms, bound_ms=b_ms, bound_by=by, ops_per_px=ops / px,
+                             plain_ops_bound_ms=plain_b_ms, megapixels=px / 1e6)
+    levels = pyramid_levels(frames[:1], cfg, dev)
+    launch_ms = cuda_ms(lambda: ck.corner_rank_maps(levels, thr, hb), iters=50)
+    plain_ms = graph_ms(lambda: [ck.corner_rank_map_plain(lvl, thr, hb) for lvl in levels],
+                        iters=5, replays=4)
+    log("kernels", f"corner: bit-equal (torch.equal) on {len(levels)} levels x B=1,3; "
+                   f"corners per level {corners}; plain B=1 {plain_ms:.4f} ms; "
+                   + "; ".join(f"{k} one launch {r['ms']:.4f} ms (bound {r['bound_ms']:.5f} ms, "
+                               f"{r['bound_by']}, {r['ops_per_px']:.1f} ops/px needed, "
+                               f"{r['megapixels']:.3f} Mpx; {r['plain_ops_bound_ms']:.5f} ms "
+                               f"at the plain version's {PLAIN_CORNER_OPS_PER_PX} ops/px)"
+                               for k, r in rows.items())
+                   + f"; B1 with launch cost {launch_ms:.4f} ms")
     return dict(name="corner_rank_map", route="cuda",
                 source="aria_slam_tpu_torch/csrc/corner_kernel.cu",
                 replaces="aria_slam_tpu/ops/pallas/corner_kernel.py:125",
-                max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=by, library_ms=None, launch_ms=launch_ms)
+                max_abs_err=0.0, ms=rows["B1"]["ms"], plain_ms=plain_ms,
+                bound_ms=rows["B1"]["bound_ms"], bound_by=rows["B1"]["bound_by"],
+                library_ms=None, launch_ms=launch_ms), {"corner": rows}
 
 
 def check_patch(frames, cfg, dev, rng):
@@ -287,7 +359,7 @@ def run_slice(frames, gt, imu, cam):
     from aria_slam_tpu_torch.ops.cuda import corner_kernel, match_kernel, patch_kernel
     from aria_slam_tpu_torch.pipeline import factory
 
-    kernels = (corner_kernel.corner_rank_map_batched, patch_kernel.extract_patches,
+    kernels = (corner_kernel.corner_rank_maps, patch_kernel.extract_patches,
                match_kernel.match_top2_batched)
 
     cfg = PipelineConfig(camera=cam, enable_fusion=False, enable_loop_closure=False,
@@ -334,8 +406,7 @@ def run_slice(frames, gt, imu, cam):
                  f"({base_mb:.1f} MiB held before the slice); "
                  f"launches {launches}")
     n = len(frames)
-    want = {"corner_rank_map_batched": 8 * n, "extract_patches": 8 * n,
-            "match_top2_batched": n}
+    want = {"corner_rank_maps": n, "extract_patches": 8 * n, "match_top2_batched": n}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     if not success >= 0.9:
@@ -426,8 +497,7 @@ def main() -> int:
     # 2. build
     _lib.build_all()
     secs, report = _lib.build_report()
-    ptxas = [ln.strip() for ln in report.splitlines()
-             if "registers" in ln or "spill" in ln or "smem" in ln]
+    ptxas = ptxas_lines(report)
     log("build", f"3 kernel libraries in {secs:.1f} s; ptxas: " + " | ".join(ptxas))
 
     # 3. kernels vs plain
@@ -438,13 +508,15 @@ def main() -> int:
                   f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
     orb_cfg = OrbConfig()
+    log("kernels", f"device times below on {smi}")
     match_rec, extra = check_match(dev, rng)
-    records = [check_corner(frames, orb_cfg, dev), check_patch(frames, orb_cfg, dev, rng),
-               match_rec]
+    corner_rec, corner_extra = check_corner(frames, orb_cfg, dev)
+    extra.update(corner_extra)
+    records = [corner_rec, check_patch(frames, orb_cfg, dev, rng), match_rec]
 
     # 4. the slice
     launches, slice_rec = run_slice(frames, gt, imu, cam)
-    by_wrapper = {"corner_rank_map": "corner_rank_map_batched",
+    by_wrapper = {"corner_rank_map": "corner_rank_maps",
                   "extract_patches": "extract_patches", "match_top2": "match_top2_batched"}
     for r in records:
         r["launches"] = launches[by_wrapper[r["name"]]]

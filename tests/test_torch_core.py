@@ -207,6 +207,8 @@ def test_kernel_wrappers_take_plain_path_only_on_cpu():
             torch.zeros((1, 4, 256), dtype=torch.int8, device="meta"),
             torch.zeros((1, 4, 256), dtype=torch.int8, device="meta"),
             torch.zeros((1, 4), dtype=torch.bool, device="meta"))
-    assert (corner_kernel.corner_rank_map_batched.launches
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        corner_kernel.corner_rank_maps([meta, torch.zeros((1, 8, 8), device="meta")], 20.0)
+    assert (corner_kernel.corner_rank_maps.launches
             == patch_kernel.extract_patches.launches
             == match_kernel.match_top2_batched.launches == 0)
