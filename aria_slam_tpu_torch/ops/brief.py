@@ -93,13 +93,18 @@ def describe_and_orient(patches_flat: torch.Tensor, pattern: np.ndarray):
     angle = torch.atan2(m01, m10)
 
     diffs = diffs.reshape(diffs.shape[:-1] + (NUM_ANGLE_BINS, bits))
-    frac = torch.remainder(angle / (2.0 * np.pi), 1.0)
-    bin_idx = torch.clamp(
-        (frac * NUM_ANGLE_BINS + 0.5).to(torch.int64) % NUM_ANGLE_BINS,
-        0, NUM_ANGLE_BINS - 1)
+    bin_idx = angle_bin(angle)
     idx = bin_idx[..., None, None].expand(bin_idx.shape + (1, bits))
     picked = torch.gather(diffs, -2, idx)[..., 0, :]
     return (picked > 0).to(torch.int8), angle
+
+
+def angle_bin(angle: torch.Tensor) -> torch.Tensor:
+    """The steering bin (int64, 0..NUM_ANGLE_BINS-1) of an orientation in
+    radians: the nearest multiple of 12 degrees."""
+    frac = torch.remainder(angle / (2.0 * np.pi), 1.0)
+    return torch.clamp((frac * NUM_ANGLE_BINS + 0.5).to(torch.int64) % NUM_ANGLE_BINS,
+                       0, NUM_ANGLE_BINS - 1)
 
 
 def smooth_for_brief(img: torch.Tensor) -> torch.Tensor:

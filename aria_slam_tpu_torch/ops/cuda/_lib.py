@@ -33,7 +33,7 @@ BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-MAX_LEVELS = 16  # csrc/corner_kernel.cu MAX_LEVELS
+MAX_LEVELS = 16  # csrc/corner_kernel.cu and csrc/patch_kernel.cu MAX_LEVELS
 
 
 class CornerLevels(ctypes.Structure):
@@ -47,13 +47,27 @@ class CornerLevels(ctypes.Structure):
                 ("num_levels", ctypes.c_int)]
 
 
+class PatchLevels(ctypes.Structure):
+    """csrc/patch_kernel.cu's level table, passed by value: per level the
+    image and centre pointers, H, W and the keypoint count, and the prefix
+    sums of keypoints and blocks (ops/cuda/patch_kernel.py level_plan)."""
+    _fields_ = [("img", ctypes.c_void_p * MAX_LEVELS),
+                ("xy", ctypes.c_void_p * MAX_LEVELS),
+                ("height", ctypes.c_int * MAX_LEVELS),
+                ("width", ctypes.c_int * MAX_LEVELS),
+                ("keys", ctypes.c_int * MAX_LEVELS),
+                ("first_key", ctypes.c_int * (MAX_LEVELS + 1)),
+                ("first_block", ctypes.c_int * (MAX_LEVELS + 1)),
+                ("num_levels", ctypes.c_int)]
+
+
 # library name -> (source file, {C function: argument types})
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SOURCES = {
     "corner": ("corner_kernel.cu",
                {"corner_rank_maps_launch": (CornerLevels, _I, _F, _F, _I, _P)}),
     "patch": ("patch_kernel.cu",
-              {"extract_patches_launch": (_P, _P, _P, _I, _I, _I, _I, _I, _P)}),
+              {"extract_patches_launch": (PatchLevels, _P, _I, _I, _P)}),
     "match": ("match_kernel.cu",
               {"match_top2_launch": (_P,) * 8 + (_I, _I, _I, _I, _I, _P)}),
 }
@@ -161,12 +175,14 @@ def require_cuda(t: torch.Tensor, name: str, dtype: torch.dtype,
                  shape: tuple) -> None:
     """Validate a kernel argument: device, dtype, shape (None = any
     extent) and contiguity."""
-    if t.device.type != "cuda":
+    # cheap reads only (no torch.device object, no dim() call): the
+    # wrappers run this for every tensor of every call
+    if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
+    if t.dtype is not dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
-    if t.dim() != len(shape) or any(s is not None and s != d
-                                    for s, d in zip(shape, t.shape)):
-        raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+    got = t.shape
+    if len(got) != len(shape) or any(s is not None and s != d for s, d in zip(shape, got)):
+        raise ValueError(f"{name}: expected shape {shape}, got {tuple(got)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")

@@ -2,12 +2,13 @@
 ops/orb.py).
 
 One corner kernel launch gives the rank maps of every pyramid level.
-Per level: the 31-px border mask and a top-k select the level's
-keypoints from its rank map; the patch kernel cuts a 39x39
-patch per keypoint from the 5x5-blurred level; one matmul gives the
-rBRIEF bits and the orientation. Batched over (B, H, W) frames; the
-online pipeline uses B = 1. Feature budgets per level follow ORB's
-geometric distribution and sum to num_features.
+Per level, the 31-px border mask and a top-k select the level's
+keypoints from its rank map. One patch kernel launch then cuts a 39x39
+patch per keypoint of every level from the 5x5-blurred levels, and one
+matmul over all of them gives the rBRIEF bits and the orientation.
+Batched over (B, H, W) frames; the online pipeline uses B = 1. Feature
+budgets per level follow ORB's geometric distribution and sum to
+num_features.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from aria_slam_tpu_torch.config import OrbConfig
 from aria_slam_tpu_torch.core.types import Features
 from aria_slam_tpu_torch.ops import brief
 from aria_slam_tpu_torch.ops.cuda.corner_kernel import corner_rank_maps
-from aria_slam_tpu_torch.ops.cuda.patch_kernel import extract_patches
+from aria_slam_tpu_torch.ops.cuda.patch_kernel import extract_patches_levels
 from aria_slam_tpu_torch.ops.pyramid import build_pyramid
 
 
@@ -57,35 +58,26 @@ def extract_batch(imgs: torch.Tensor, cfg: OrbConfig) -> Features:
     pattern = brief.brief_pattern(cfg.descriptor_bits, cfg.patch_size, cfg.brief_seed)
 
     ranks = corner_rank_maps(levels, cfg.fast_threshold, cfg.harris_block_size)
-
-    parts = {k: [] for k in ("xy", "resp", "angle", "oct", "size", "desc", "valid")}
-    for lvl, (limgs, rank, quota) in enumerate(zip(levels, ranks, quotas)):
-        scale = cfg.scale_factor**lvl
-        xy, resp, valid = _select_keypoints(rank, quota, cfg.edge_threshold)
-        blurred = brief.smooth_for_brief(limgs).contiguous()
-        patches = extract_patches(blurred, xy, brief.PATCH_R)  # (B, K, 39, 39)
-        desc, ang = brief.describe_and_orient(patches.reshape(bsz, quota, -1), pattern)
-
-        parts["xy"].append(xy * scale)
-        parts["resp"].append(resp)
-        parts["angle"].append(ang)
-        parts["oct"].append(torch.full((bsz, quota), lvl, dtype=torch.int32,
-                                       device=imgs.device))
-        parts["size"].append(torch.full((bsz, quota), cfg.patch_size * scale,
-                                        dtype=torch.float32, device=imgs.device))
-        parts["desc"].append(desc)
-        parts["valid"].append(valid)
+    xys, resps, valids = zip(*(_select_keypoints(rank, quota, cfg.edge_threshold)
+                               for rank, quota in zip(ranks, quotas)))
+    blurred = [brief.smooth_for_brief(limgs).contiguous() for limgs in levels]
+    patches = extract_patches_levels(blurred, xys, brief.PATCH_R)  # (B, N, 39, 39)
+    desc, angle = brief.describe_and_orient(patches.flatten(2), pattern)
+    scales = [cfg.scale_factor**lvl for lvl in range(cfg.num_levels)]
 
     # per-level quotas sum exactly to num_features: concatenation gives
     # the padded feature set directly
-    valid = torch.cat(parts["valid"], 1)
+    valid = torch.cat(valids, 1)
+    dev = imgs.device
     return Features(
-        xy=torch.cat(parts["xy"], 1),
-        response=torch.where(valid, torch.cat(parts["resp"], 1), 0.0),
-        angle=torch.cat(parts["angle"], 1),
-        octave=torch.cat(parts["oct"], 1),
-        size=torch.cat(parts["size"], 1),
-        desc=torch.cat(parts["desc"], 1) * valid[..., None].to(torch.int8),
+        xy=torch.cat([xy * scale for xy, scale in zip(xys, scales)], 1),
+        response=torch.where(valid, torch.cat(resps, 1), 0.0),
+        angle=angle,
+        octave=torch.cat([torch.full((bsz, q), lvl, dtype=torch.int32, device=dev)
+                          for lvl, q in enumerate(quotas)], 1),
+        size=torch.cat([torch.full((bsz, q), cfg.patch_size * scale, dtype=torch.float32,
+                                   device=dev) for q, scale in zip(quotas, scales)], 1),
+        desc=desc * valid[..., None].to(torch.int8),
         valid=valid,
     )
 

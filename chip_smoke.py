@@ -14,18 +14,22 @@ Phases, one line each; any failure raises and exits non-zero:
               at the shapes of the online VO slice (752x480, 8 levels,
               2000 features): the corner maps bit-equal at B = 1 and 3,
               the match results bit-exact on nine cases up to N = 256
-              pairs of 2000x2000, the patches exactly equal. Device times
-              (CUDA graph replay, launch cost excluded) of the kernel, the
-              plain version and, where one exists, a single PyTorch call
-              computing the same function (timed here, never used by the
-              port), beside the least time the card could take and the
-              kernel's time with its launch cost; the corner kernel also
-              at B = 33 frames, the match kernel also at N = 4 and 256.
+              pairs of 2000x2000, the patches of all 8 levels exactly
+              equal at B = 1 and 3 (detector keypoints, and edge centres),
+              and rBRIEF from one product over all levels against one a
+              level (bits identical where the angle bin is; changed bins
+              printed). Device times (CUDA graph replay, launch cost
+              excluded) of the kernel, the plain version and, where one
+              exists, PyTorch calls computing the same function (timed
+              here, never used by the port), beside the least time the
+              card could take and the kernel's time with its launch cost;
+              the corner and patch kernels also at B = 33 frames, the
+              match kernel also at N = 4 and 256.
 4. slice   -- 40 rendered frames through the port's own entry points
               (factory.create_gpu, SlamPipeline.process_imu /
               process_frame / finalize) in the VO-only configuration at
               full EuRoC width; checks the kernels' launch counts (one
-              corner launch, eight patch launches and one match launch a
+              launch each of the corner, patch and match kernels a
               frame), the VO success share and the Sim3 ATE against the
               rendered ground truth.
 
@@ -68,22 +72,26 @@ def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def cuda_ms(fn, iters: int = 30, warmup: int = 3) -> float:
-    """Mean time of fn() in ms, from CUDA events around `iters`
-    back-to-back calls after `warmup` calls. Where a call's device work is
-    shorter than its host cost (allocation, checks, the launch), this
-    measures the host."""
+def cuda_ms(fn, iters: int = 30, warmup: int = 3, repeats: int = 5) -> float:
+    """Time of fn() in ms: the median over `repeats` of the mean from CUDA
+    events around `iters` back-to-back calls, after `warmup` calls. Where a
+    call's device work is shorter than its host cost (allocation, checks,
+    the launch), this measures the host, whose clock a shared machine
+    disturbs; the median keeps one disturbed repeat out."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    times = []
+    for _ in range(repeats):
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return float(np.median(times))
 
 
 def graph_ms(fn, iters: int = 20, replays: int = 10) -> float:
@@ -312,44 +320,108 @@ def check_corner(frames, cfg, dev):
                 library_ms=None, launch_ms=launch_ms), {"corner": rows}
 
 
+def centres_anywhere(rng, b: int, shape, n: int, dev):
+    """(b, n, 2) float32 centres anywhere on an image of `shape` and up to
+    3 px past it, to exercise the corner clamp and the edge repetition."""
+    h, w = shape
+    return torch.from_numpy(np.stack([rng.uniform(-3, w + 3, (b, n)),
+                                      rng.uniform(-3, h + 3, (b, n))], -1)
+                            .astype(np.float32)).to(dev)
+
+
+def patch_bytes(blurred, xys, indices) -> int:
+    """Least traffic of the patch kernel: the image pixels the patches
+    cover, each read once, the centres, and the patches written."""
+    nbytes = 0
+    for img, xy, (yy, xx) in zip(blurred, xys, indices):
+        b, h, w = img.shape
+        covered = torch.zeros((b, h, w), dtype=torch.bool, device=img.device)
+        bi = torch.arange(b, device=img.device)[:, None, None, None]
+        covered[bi, yy.expand(-1, -1, -1, xx.shape[-1]), xx.expand(-1, -1, yy.shape[-2], -1)] = True
+        nbytes += 4 * int(covered.sum()) + 4 * xy.numel() + 4 * yy.numel() * xx.shape[-1]
+    return nbytes
+
+
+def check_descriptors(blurred, xys, cfg):
+    """rBRIEF of one BRIEF product over all levels' patches (the main path)
+    against one product a level: the bits must agree wherever the angle bin
+    does. Returns (changed angle bins, keypoints, max abs angle diff)."""
+    from aria_slam_tpu_torch.ops import brief
+    from aria_slam_tpu_torch.ops.cuda import patch_kernel as pk
+
+    pattern = brief.brief_pattern(cfg.descriptor_bits, cfg.patch_size, cfg.brief_seed)
+    once_d, once_a = brief.describe_and_orient(
+        pk.extract_patches_levels(blurred, xys, brief.PATCH_R).flatten(2), pattern)
+    per = [brief.describe_and_orient(pk.extract_patches(img, xy, brief.PATCH_R).flatten(2),
+                                     pattern) for img, xy in zip(blurred, xys)]
+    per_d, per_a = torch.cat([d for d, _ in per], 1), torch.cat([a for _, a in per], 1)
+    same_bin = brief.angle_bin(once_a) == brief.angle_bin(per_a)
+    if not torch.equal(once_d[same_bin], per_d[same_bin]):
+        raise AssertionError("BRIEF bits differ between one product and one a level at "
+                             f"{int((once_d != per_d).any(-1)[same_bin].sum())} keypoints "
+                             "of the same angle bin")
+    return (int((~same_bin).sum()), same_bin.numel(),
+            float((once_a - per_a).abs().max()))
+
+
 def check_patch(frames, cfg, dev, rng):
     from aria_slam_tpu_torch.ops import brief
     from aria_slam_tpu_torch.ops.cuda import patch_kernel as pk
 
-    r = brief.PATCH_R
-    ms = launch_ms = plain_ms = lib_ms = bytes_ = 0.0
-    for _, blurred, xy in level_inputs(frames[:1], cfg, dev):
-        h, w = blurred.shape[-2:]
-        # the detector's keypoints, plus centres anywhere (edges included)
-        # to exercise the corner clamp and the edge repetition
-        anywhere = torch.from_numpy(np.stack([rng.uniform(-3, w + 3, (1, 64)),
-                                              rng.uniform(-3, h + 3, (1, 64))], -1)
-                                    .astype(np.float32)).to(dev)
-        for pts in (xy, anywhere):
-            got = pk.extract_patches(blurred, pts, r)
-            if not torch.equal(got, pk.extract_patches_plain(blurred, pts, r)):
-                raise AssertionError(f"patch {(h, w)}: differs from the plain version")
-        yy, xx = pk.patch_indices(blurred.shape, xy, r)
-        bi = torch.zeros((1, 1, 1, 1), dtype=torch.long, device=dev)
-        ms += graph_ms(lambda: pk.extract_patches(blurred, xy, r))
-        launch_ms += cuda_ms(lambda: pk.extract_patches(blurred, xy, r), iters=50)
-        plain_ms += graph_ms(lambda: pk.extract_patches_plain(blurred, xy, r))
-        lib_ms += graph_ms(lambda: blurred[bi, yy, xx])
-        # least traffic: the image pixels the patches cover, the centres,
-        # the patches written
-        covered = torch.zeros((h, w), dtype=torch.bool, device=dev)
-        covered[yy.expand(-1, -1, -1, xx.shape[-1]), xx.expand(-1, -1, yy.shape[-2], -1)] = True
-        bytes_ += 4 * int(covered.sum()) + xy.numel() * 4 + yy.numel() * xx.shape[-1] * 4
-    bound_ms, by = bound(bytes_, 0.0, F32_OPS_PER_MS)
-    log("kernels", f"patch: exactly equal on 8 levels (detector keypoints + edge centres); "
-                   f"per frame kernel {ms:.4f} ms ({launch_ms:.4f} ms with launch cost), plain "
-                   f"{plain_ms:.4f} ms, one indexing call "
-                   f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({by})")
+    radius = brief.PATCH_R
+    # all 8 levels in one call, exact: the detector's keypoints, and the
+    # same plus 64 centres a level anywhere, edges and corners included
+    for b in (1, 3):
+        inputs = level_inputs(frames[:b], cfg, dev)
+        blurred = [img for _, img, _ in inputs]
+        det = [xy for _, _, xy in inputs]
+        edge = [torch.cat([xy, centres_anywhere(rng, b, img.shape[-2:], 64, dev)], 1)
+                for img, xy in zip(blurred, det)]
+        for what, xys in (("detector", det), ("detector + edge", edge)):
+            got = pk.extract_patches_levels(blurred, xys, radius)
+            want = pk.extract_patches_levels_plain(blurred, xys, radius)
+            if not torch.equal(got, want):
+                raise AssertionError(f"patch B={b} {what}: differs from the plain version at "
+                                     f"{int((got != want).sum())} of {got.numel()} floats")
+        changed, keys, max_da = check_descriptors(blurred, det, cfg)
+        log("kernels", f"patch B={b}: one launch for {len(blurred)} levels exactly equal "
+                       f"(detector keypoints, "
+                       f"+ 64 edge centres a level); BRIEF once over all levels against once "
+                       f"a level: {changed} of {keys} angle bins changed, bits identical "
+                       f"where the bin is, max angle diff {max_da:.3g} rad")
+    rows = {}
+    for b in (1, 33):
+        inputs = level_inputs(frames[:b], cfg, dev)
+        blurred = [img for _, img, _ in inputs]
+        xys = [xy for _, _, xy in inputs]
+        indices = [pk.patch_indices(img.shape, xy, radius) for img, xy in zip(blurred, xys)]
+        bi = torch.arange(b, device=dev)[:, None, None, None]
+        big = b > 1
+        reps = dict(iters=5, replays=4) if big else {}
+        ms = graph_ms(lambda: pk.extract_patches_levels(blurred, xys, radius), **reps)
+        launch_ms = cuda_ms(lambda: pk.extract_patches_levels(blurred, xys, radius),
+                            iters=10 if big else 50)
+        plain_ms = graph_ms(lambda: pk.extract_patches_levels_plain(blurred, xys, radius), **reps)
+        # one advanced-indexing gather a level, summed
+        lib_ms = graph_ms(lambda: [img[bi, yy, xx] for img, (yy, xx) in zip(blurred, indices)],
+                          **reps)
+        b_ms, by = bound(patch_bytes(blurred, xys, indices), 0.0, F32_OPS_PER_MS)
+        blocks = b * pk.level_plan([xy.shape[1] for xy in xys])[1][-1]
+        rows[f"B{b}"] = dict(ms=ms, launch_ms=launch_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                             bound_ms=b_ms, bound_by=by, blocks=blocks)
+    log("kernels", "patch: " + "; ".join(
+        f"{k} one launch ({row['blocks']} blocks) {row['ms']:.4f} ms, "
+        f"{100 * row['bound_ms'] / row['ms']:.1f} % of its bound {row['bound_ms']:.5f} ms "
+        f"({row['bound_by']}), with launch cost {row['launch_ms']:.4f} ms, plain "
+        f"{row['plain_ms']:.4f} ms, one indexing call a level {row['library_ms']:.4f} ms"
+        for k, row in rows.items()))
+    one = rows["B1"]
     return dict(name="extract_patches", route="cuda",
                 source="aria_slam_tpu_torch/csrc/patch_kernel.cu",
                 replaces="aria_slam_tpu/ops/pallas/patch_kernel.py:60",
-                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=by, library_ms=lib_ms, launch_ms=launch_ms)
+                max_abs_err=0.0, ms=one["ms"], plain_ms=one["plain_ms"],
+                bound_ms=one["bound_ms"], bound_by=one["bound_by"],
+                library_ms=one["library_ms"], launch_ms=one["launch_ms"]), {"patch": rows}
 
 
 # ----------------------------------------------------------------- slice
@@ -359,7 +431,7 @@ def run_slice(frames, gt, imu, cam):
     from aria_slam_tpu_torch.ops.cuda import corner_kernel, match_kernel, patch_kernel
     from aria_slam_tpu_torch.pipeline import factory
 
-    kernels = (corner_kernel.corner_rank_maps, patch_kernel.extract_patches,
+    kernels = (corner_kernel.corner_rank_maps, patch_kernel.extract_patches_levels,
                match_kernel.match_top2_batched)
 
     cfg = PipelineConfig(camera=cam, enable_fusion=False, enable_loop_closure=False,
@@ -406,7 +478,7 @@ def run_slice(frames, gt, imu, cam):
                  f"({base_mb:.1f} MiB held before the slice); "
                  f"launches {launches}")
     n = len(frames)
-    want = {"corner_rank_maps": n, "extract_patches": 8 * n, "match_top2_batched": n}
+    want = {"corner_rank_maps": n, "extract_patches_levels": n, "match_top2_batched": n}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     if not success >= 0.9:
@@ -512,12 +584,14 @@ def main() -> int:
     match_rec, extra = check_match(dev, rng)
     corner_rec, corner_extra = check_corner(frames, orb_cfg, dev)
     extra.update(corner_extra)
-    records = [corner_rec, check_patch(frames, orb_cfg, dev, rng), match_rec]
+    patch_rec, patch_extra = check_patch(frames, orb_cfg, dev, rng)
+    extra.update(patch_extra)
+    records = [corner_rec, patch_rec, match_rec]
 
     # 4. the slice
     launches, slice_rec = run_slice(frames, gt, imu, cam)
     by_wrapper = {"corner_rank_map": "corner_rank_maps",
-                  "extract_patches": "extract_patches", "match_top2": "match_top2_batched"}
+                  "extract_patches": "extract_patches_levels", "match_top2": "match_top2_batched"}
     for r in records:
         r["launches"] = launches[by_wrapper[r["name"]]]
     if args.profile:

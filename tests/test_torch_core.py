@@ -209,6 +209,10 @@ def test_kernel_wrappers_take_plain_path_only_on_cpu():
             torch.zeros((1, 4), dtype=torch.bool, device="meta"))
     with pytest.raises(ValueError, match="CUDA tensor"):
         corner_kernel.corner_rank_maps([meta, torch.zeros((1, 8, 8), device="meta")], 20.0)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        patch_kernel.extract_patches_levels(
+            [meta, torch.zeros((1, 8, 8), device="meta")],
+            [torch.zeros((1, 4, 2), device="meta"), torch.zeros((1, 2, 2), device="meta")], 19)
     assert (corner_kernel.corner_rank_maps.launches
-            == patch_kernel.extract_patches.launches
+            == patch_kernel.extract_patches_levels.launches
             == match_kernel.match_top2_batched.launches == 0)

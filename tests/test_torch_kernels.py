@@ -6,9 +6,11 @@ interpret mode: `pl.pallas_call` is patched inside the test to pass
 `interpret=pltpu.InterpretParams()`, and nothing in the JAX package
 changes. The same numpy inputs go through the kernel and through the
 port's plain version, which is what the CUDA kernels are held to on the
-card. Besides: `corner_rank_maps` (all pyramid levels in one call) on the
-CPU, the split of the train columns that the match kernel makes to fill
-the card (`split_plan`), and the rule that merges the slices' results.
+card. Besides: `corner_rank_maps` and `extract_patches_levels` (all
+pyramid levels in one call) on the CPU, the patch kernel's level table
+(`level_plan`) and a copy of its per-block arithmetic, the split of the train columns
+that the match kernel makes to fill the card (`split_plan`), and the rule
+that merges the slices' results.
 """
 
 import functools
@@ -24,6 +26,7 @@ from jax.experimental.pallas import tpu as pltpu
 from aria_slam_tpu.ops.pallas import corner_kernel as jcorner
 from aria_slam_tpu.ops.pallas import match_kernel as jmatch
 from aria_slam_tpu.ops.pallas import patch_kernel as jpatch
+from aria_slam_tpu_torch.ops import orb as torb
 from aria_slam_tpu_torch.ops import pyramid as tpyramid
 from aria_slam_tpu_torch.ops.cuda import corner_kernel, match_kernel, patch_kernel
 
@@ -79,18 +82,104 @@ def test_match_plain_matches_pallas_kernel(interpret, name, q, t, v):
         np.testing.assert_array_equal(idx[0, :20], np.arange(20))
 
 
+def _edge_centres(rng, h, w, inside):
+    """(2, 12 + inside, 2) float32 centres: past every edge and corner of
+    an h x w image, on its border, and `inside` anywhere inside."""
+    edge = [(-5, -5), (w + 5, -5), (-5, h + 5), (w + 5, h + 5), (w / 2, -7), (w / 2, h + 7),
+            (-7, h / 2), (w + 7, h / 2), (0, 0), (w - 1, h - 1), (w - 0.6, 3), (2.4, h - 0.5)]
+    pts = np.stack([rng.uniform(0, w, inside), rng.uniform(0, h, inside)], -1)
+    return np.concatenate([np.array(edge), pts])[None].repeat(2, 0).astype(np.float32)
+
+
 def test_patch_plain_matches_pallas_kernel(interpret):
     rng = np.random.default_rng(12)
     img = rng.uniform(0, 255, (2, 60, 80)).astype(np.float32)
-    h, w = img.shape[1:]
-    # 24 centres: inside, and past every edge and corner
-    edge = [(-5, -5), (w + 5, -5), (-5, h + 5), (w + 5, h + 5), (w / 2, -7), (w / 2, h + 7),
-            (-7, h / 2), (w + 7, h / 2), (0, 0), (w - 1, h - 1), (w - 0.6, 3), (2.4, h - 0.5)]
-    inside = np.stack([rng.uniform(0, w, 12), rng.uniform(0, h, 12)], -1)
-    xy = np.concatenate([np.array(edge), inside])[None].repeat(2, 0).astype(np.float32)
+    xy = _edge_centres(rng, *img.shape[1:], 12)  # 24 centres
     ref = jpatch.extract_patches(jnp.asarray(img), jnp.asarray(xy), 19)
     ours = patch_kernel.extract_patches_plain(torch.from_numpy(img), torch.from_numpy(xy), 19)
     np.testing.assert_array_equal(np.asarray(ref), ours.numpy())
+
+
+def _patch_pyramid():
+    """A 3-level pyramid of two random frames and ragged sets of edge and
+    inside centres a level (19, 14 and 12 of them)."""
+    rng = np.random.default_rng(14)
+    img = torch.from_numpy(rng.uniform(0, 255, (2, 60, 80)).astype(np.float32))
+    levels = [lvl.contiguous() for lvl in tpyramid.build_pyramid(img, 3, 1.2)]
+    xys = [torch.from_numpy(_edge_centres(rng, *lvl.shape[1:], n))
+           for lvl, n in zip(levels, (7, 2, 0))]
+    return levels, xys
+
+
+def test_patch_levels_plain_matches_pallas_kernel(interpret):
+    """All levels at once, as the CUDA kernel cuts them, against the Pallas
+    kernel level by level, exactly."""
+    levels, xys = _patch_pyramid()
+    ref = np.concatenate([np.asarray(jpatch.extract_patches(jnp.asarray(lvl.numpy()),
+                                                            jnp.asarray(xy.numpy()), 19))
+                          for lvl, xy in zip(levels, xys)], 1)
+    ours = patch_kernel.extract_patches_levels_plain(levels, xys, 19)
+    assert ours.shape == (2, 19 + 14 + 12, 39, 39)
+    np.testing.assert_array_equal(ref, ours.numpy())
+
+
+def test_patch_levels_equals_per_level_calls():
+    levels, xys = _patch_pyramid()
+    got = patch_kernel.extract_patches_levels(levels, xys, 19)
+    want = torch.cat([patch_kernel.extract_patches(lvl, xy, 19)
+                      for lvl, xy in zip(levels, xys)], 1)
+    assert torch.equal(got, want)
+    assert patch_kernel.extract_patches_levels.launches == 0  # CPU tensors: plain version
+
+
+def _block_ranges(keys, batch: int, radius: int):
+    """What each block of csrc/patch_kernel.cu's grid does, in launch
+    order, in a copy of the kernel's arithmetic (the kernel does not run
+    this): (frame, level, first keypoint of the level, keypoints, output
+    start in floats, head, float4s, tail), where head scalars reach the
+    output's first 16-byte boundary, the float4s are aligned and the tail
+    scalars follow them."""
+    area = (2 * radius + 1) ** 2
+    total = sum(keys)
+    first_key = [0, *np.cumsum(keys).tolist()]
+    out = []
+    for frame in range(batch):
+        for lvl, k in enumerate(keys):
+            for k0 in range(0, k, patch_kernel.GROUP):
+                n = min(patch_kernel.GROUP, k - k0)
+                start = (frame * total + first_key[lvl] + k0) * area
+                head = min((4 - start % 4) % 4, n * area)
+                body = (n * area - head) // 4
+                out.append((frame, lvl, k0, n, start, head, body, n * area - head - 4 * body))
+    return out
+
+
+@pytest.mark.parametrize("keys,batch", [
+    (torb.features_per_level(2000, 8, 1.2), 1),
+    (torb.features_per_level(2000, 8, 1.2), 33),
+    ([5, 1, 0, 9, 4, 3], 3),   # ragged, with an empty level
+], ids=["default_B1", "default_B33", "ragged"])
+def test_patch_block_plan(keys, batch):
+    """The level table's prefix sums and every block's share of the output:
+    the blocks cover it once, in order, each storing aligned float4s
+    between a head and a tail of at most 3 floats."""
+    radius, area = 19, 39 * 39
+    first_key, first_block = patch_kernel.level_plan(keys)
+    assert first_key == [0, *np.cumsum(keys).tolist()]
+    assert first_block == [0, *np.cumsum([-(-k // patch_kernel.GROUP) for k in keys]).tolist()]
+    blocks = _block_ranges(keys, batch, radius)
+    end = 0
+    for frame, lvl, k0, n, start, head, body, tail in blocks:
+        assert start == end and 1 <= n <= patch_kernel.GROUP and k0 + n <= keys[lvl]
+        assert 0 <= head <= 3 and 0 <= tail <= 3 and head + 4 * body + tail == n * area
+        assert body == 0 or (start + head) % 4 == 0
+        end = start + n * area
+    assert end == batch * sum(keys) * area
+    assert len(blocks) == batch * first_block[-1]
+    heads = {b[5] for b in blocks}
+    if sum(keys) == 2000:
+        assert heads == {0, 1, 2, 3}  # odd level offsets: every alignment occurs
+        assert len(blocks) >= 2 * 132 * batch  # two blocks an SM at least, per frame
 
 
 @pytest.mark.parametrize("shape", [(1, 70, 90), (2, 41, 130)])

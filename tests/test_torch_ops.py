@@ -69,6 +69,32 @@ def test_describe_and_orient_matches(frames):
     np.testing.assert_allclose(np.asarray(ja), ta.numpy(), atol=1e-5)
 
 
+def test_describe_and_orient_once_equals_per_level(frames):
+    """extract_batch's one BRIEF product over every level's patches gives
+    the bits of one product a level: each bit is the difference of two
+    bf16-rounded pixels, exact in any summation order. Only the two
+    orientation moments (sums of ~700 terms) may round differently; the
+    angles agree to 1e-5 rad and no steering bin changes on these frames."""
+    cfg = TORCH_SMALL_CFG.orb
+    levels = tpyramid.build_pyramid(torch.from_numpy(frames), cfg.num_levels, cfg.scale_factor)
+    ranks = corner_kernel.corner_rank_maps(levels, cfg.fast_threshold, cfg.harris_block_size)
+    quotas = torb.features_per_level(cfg.num_features, cfg.num_levels, cfg.scale_factor)
+    xys = [torb._select_keypoints(rank, q, cfg.edge_threshold)[0]
+           for rank, q in zip(ranks, quotas)]
+    blurred = [tbrief.smooth_for_brief(lvl) for lvl in levels]
+    pattern = tbrief.brief_pattern(cfg.descriptor_bits, cfg.patch_size, cfg.brief_seed)
+    patches = patch_kernel.extract_patches_levels(blurred, xys, tbrief.PATCH_R)
+    once_d, once_a = tbrief.describe_and_orient(patches.flatten(2), pattern)
+    per = [tbrief.describe_and_orient(
+        patch_kernel.extract_patches(img, xy, tbrief.PATCH_R).flatten(2), pattern)
+        for img, xy in zip(blurred, xys)]
+    per_d, per_a = torch.cat([d for d, _ in per], 1), torch.cat([a for _, a in per], 1)
+    assert once_d.shape == (2, cfg.num_features, cfg.descriptor_bits)
+    assert torch.equal(tbrief.angle_bin(once_a), tbrief.angle_bin(per_a))
+    assert torch.equal(once_d, per_d)
+    np.testing.assert_allclose(once_a.numpy(), per_a.numpy(), rtol=0, atol=1e-5)
+
+
 # ------------------------------------------------------------ corner map
 @pytest.mark.parametrize("level", [0, 1, 2])
 def test_corner_plain_matches_rank_map_xla(frames, level):

@@ -1,25 +1,30 @@
 #!/usr/bin/env python3
-"""Where the corner and match kernels spend their time, on the card.
+"""Where the corner, match and patch kernels spend their time, on the card.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
     python3 tools/kernel_phases.py [--out phases.json]
 
 The card's profilers are not available there, so this builds copies of
-csrc/corner_kernel.cu and csrc/match_kernel.cu with parts cut out and
-times each copy at the shapes `chip_smoke.py` uses (CUDA graph replay,
-launch cost excluded):
+csrc/corner_kernel.cu, csrc/match_kernel.cu and csrc/patch_kernel.cu with
+parts cut out and times each copy at the shapes `chip_smoke.py` uses (CUDA
+graph replay, launch cost excluded):
 
 - corner: copies that write -3e38 and stop before each phase (compass
   test, full FAST score, NMS, Harris), at B = 1 and B = 33 frames of the
   752x480 8-level pyramid;
 - match: copies without the tensor-core products and/or without the
   top-2 updates, or without staging the train tiles after the first, at
-  N = 1, 4 and 256 pairs of 2000x2000 descriptors.
+  N = 1, 4 and 256 pairs of 2000x2000 descriptors;
+- patch: copies without the staging copies into shared memory and/or
+  without the float4 stores, and one that stages through registers
+  (`__ldg`) instead of `cp.async`, at B = 1 and B = 33 frames of the
+  detector's 2000 keypoints on the 8-level pyramid.
 
-Every copy but the full kernel computes wrong results; only the times
-mean something. The cuts are text replacements of marked lines of the
-sources; the script stops if a marker is missing.
+Every copy but the full kernels and the patch kernel's register-staged
+copy computes wrong results; only the times mean something. The cuts are
+text replacements of marked lines of the sources; the script stops if a
+marker is missing.
 """
 
 from __future__ import annotations
@@ -59,6 +64,8 @@ MATCH_MMA = """  asm volatile(
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));"""
 MATCH_STAGE = "      stage(it + 1, buf ^ 1);"
+PATCH_STAGE = "      cp_async4(&s_patch[lead + e], src + (size_t)y * W + x);\n"
+PATCH_STORE = "  for (int q = tid; q < body; q += NT) d4[q] = s4[q];\n"
 NO_PUSH = "  s.best ^= key;"
 NO_MMA = "  c[0] ^= a[0] ^ b0; c[1] ^= a[1] ^ b1; c[2] ^= a[2]; c[3] ^= a[3];"
 
@@ -67,12 +74,16 @@ def variants() -> dict:
     """{(library, variant): source}."""
     corner = (_lib.CSRC_DIR / "corner_kernel.cu").read_text()
     match = (_lib.CSRC_DIR / "match_kernel.cu").read_text()
+    patch = (_lib.CSRC_DIR / "patch_kernel.cu").read_text()
     for marker in [*CORNER_PHASES.values()]:
         if marker not in corner:
             raise SystemExit(f"marker {marker!r} not in corner_kernel.cu")
     for marker in (MATCH_PUSH, MATCH_MMA, MATCH_STAGE):
         if marker not in match:
             raise SystemExit(f"marker not in match_kernel.cu:\n{marker}")
+    for marker in (PATCH_STAGE, PATCH_STORE):
+        if marker not in patch:
+            raise SystemExit(f"marker not in patch_kernel.cu:\n{marker}")
     out = {("corner", name): corner.replace(marker, CORNER_STOP + marker)
            for name, marker in CORNER_PHASES.items()}
     out[("corner", "+ Harris (full kernel)")] = corner
@@ -83,6 +94,16 @@ def variants() -> dict:
         MATCH_PUSH, NO_PUSH)
     # every tile after the first computes on whatever its buffer holds
     out[("match", "no train staging")] = match.replace(MATCH_STAGE, "      cp_async_commit();")
+    # the stores then write whatever shared memory holds; the staging loop,
+    # left with no effect, goes as dead code
+    out[("patch", "full kernel")] = patch
+    out[("patch", "no staging")] = patch.replace(PATCH_STAGE, "")
+    out[("patch", "no float4 stores")] = patch.replace(PATCH_STORE, "")
+    out[("patch", "no staging, no float4 stores")] = patch.replace(PATCH_STAGE, "").replace(
+        PATCH_STORE, "")
+    # the same function, staged through registers instead of cp.async
+    out[("patch", "loads through registers")] = patch.replace(
+        PATCH_STAGE, "      s_patch[lead + e] = __ldg(src + (size_t)y * W + x);\n")
     return out
 
 
@@ -127,6 +148,8 @@ def main() -> int:
     from aria_slam_tpu_torch.config import CameraConfig, OrbConfig
     from aria_slam_tpu_torch.ops.cuda import corner_kernel as ck
     from aria_slam_tpu_torch.ops.cuda import match_kernel as mk
+    from aria_slam_tpu_torch.ops.brief import PATCH_R
+    from aria_slam_tpu_torch.ops.cuda import patch_kernel as pk
 
     smi = cs.smi_line()
     print(f"device times (CUDA graph replay) on {smi}", flush=True)
@@ -141,6 +164,10 @@ def main() -> int:
                                dtype=torch.int8),
                  torch.rand((n, 2000), generator=gen, device=dev) >= 0.1)
              for n in (1, 4, 256)}
+    patches = {}
+    for b in (1, 33):
+        inputs = cs.level_inputs(frames[:b], cfg, dev)
+        patches[b] = ([img for _, img, _ in inputs], [xy for _, _, xy in inputs])
     rows = []
     tmp = _lib.BUILD_DIR / "phases"
     for (lib_name, name), (path, ptxas) in build(variants(), tmp).items():
@@ -148,13 +175,18 @@ def main() -> int:
         if lib_name == "corner":
             times = {f"B{b}": cs.graph_ms(lambda: ck.corner_rank_maps(
                 lv, cfg.fast_threshold, cfg.harris_block_size)) for b, lv in levels.items()}
+        elif lib_name == "patch":
+            times = {f"B{b}": cs.graph_ms(lambda: pk.extract_patches_levels(*p, PATCH_R),
+                                          iters=5 if b > 1 else 20,
+                                          replays=4 if b > 1 else 10)
+                     for b, p in patches.items()}
         else:
             times = {f"N{n}": cs.graph_ms(lambda: mk.match_top2_batched(*p),
                                           iters=5 if n > 16 else 20,
                                           replays=4 if n > 16 else 10)
                      for n, p in pairs.items()}
         rows.append(dict(kernel=lib_name, variant=name, ms=times, ptxas=ptxas))
-        print(f"{lib_name:6s} {name:26s} " + "  ".join(f"{k} {v:.4f} ms"
+        print(f"{lib_name:6s} {name:30s} " + "  ".join(f"{k} {v:.4f} ms"
                                                        for k, v in times.items()), flush=True)
     shutil.rmtree(tmp)
     if args.out:
