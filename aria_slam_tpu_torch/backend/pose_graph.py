@@ -79,6 +79,68 @@ def _add_edge(g: PoseGraph, i, j, rel, weight, t_weight=1.0, r_weight=1.0) -> Po
     )
 
 
+def _put_rows(x: torch.Tensor, idx: torch.Tensor, values) -> torch.Tensor:
+    """x with rows `idx` set to `values`; an index at or past the end is
+    dropped (it lands in a scratch row that is cut off again), with no
+    read of the index on the host."""
+    n = x.shape[0]
+    buf = torch.cat([x, x[:1]])
+    buf[idx.long().clamp(max=n)] = values
+    return buf[:n]
+
+
+def extend_chain(g: PoseGraph, poses, rels, first_node,
+                 t_weight=1.0, r_weight=1.0) -> PoseGraph:
+    """Append C chain nodes and their odometry edges in one call: node
+    ids first_node..first_node+C-1 with world poses `poses` (C, 4, 4) and
+    edges (i-1 -> i) measuring `rels` (C, 4, 4) = T_{i-1}^-1 T_i.
+    t_weight / r_weight: translation / rotation weight of the chain
+    edges. Nodes and edges past the capacities are dropped."""
+    c = poses.shape[0]
+    dev = g.node_pose.device
+    steps = torch.arange(c, dtype=torch.int32, device=dev)
+    node_idx = torch.as_tensor(first_node, dtype=torch.int32, device=dev) + steps
+    slots = g.num_edges + steps
+    f32 = dict(dtype=torch.float32, device=dev)
+    return g.replace(
+        node_pose=_put_rows(g.node_pose, node_idx, poses),
+        node_valid=_put_rows(g.node_valid, node_idx, True),
+        edge_i=_put_rows(g.edge_i, slots, node_idx - 1),
+        edge_j=_put_rows(g.edge_j, slots, node_idx),
+        edge_rel=_put_rows(g.edge_rel, slots, rels),
+        edge_weight=_put_rows(g.edge_weight, slots, 1.0),
+        edge_twt=_put_rows(g.edge_twt, slots, torch.as_tensor(t_weight, **f32).expand(c)),
+        edge_rwt=_put_rows(g.edge_rwt, slots, torch.as_tensor(r_weight, **f32).expand(c)),
+        edge_valid=_put_rows(g.edge_valid, slots, True),
+        num_nodes=torch.clamp(torch.maximum(g.num_nodes, node_idx[-1] + 1),
+                              max=g.node_pose.shape[0]),
+        num_edges=torch.clamp(g.num_edges + c, max=g.edge_i.shape[0]),
+    )
+
+
+def add_edges_batch(g: PoseGraph, i_idx, j_idx, rels, weight, valid,
+                    t_weight=1.0) -> PoseGraph:
+    """Append a batch of edges in one call. An entry with valid=False
+    still takes a slot but carries edge_valid=False and weight 0; slots
+    past the capacity are dropped."""
+    e = i_idx.shape[0]
+    dev = g.node_pose.device
+    slots = g.num_edges + torch.arange(e, dtype=torch.int32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    valid = torch.as_tensor(valid, dtype=torch.bool, device=dev)
+    w = torch.as_tensor(weight, **f32).expand(e)
+    return g.replace(
+        edge_i=_put_rows(g.edge_i, slots, torch.as_tensor(i_idx, device=dev).to(torch.int32)),
+        edge_j=_put_rows(g.edge_j, slots, torch.as_tensor(j_idx, device=dev).to(torch.int32)),
+        edge_rel=_put_rows(g.edge_rel, slots, rels),
+        edge_weight=_put_rows(g.edge_weight, slots, torch.where(valid, w, 0.0)),
+        edge_twt=_put_rows(g.edge_twt, slots, torch.as_tensor(t_weight, **f32).expand(e)),
+        edge_rwt=_put_rows(g.edge_rwt, slots, 1.0),
+        edge_valid=_put_rows(g.edge_valid, slots, valid),
+        num_edges=torch.clamp(g.num_edges + e, max=g.edge_i.shape[0]),
+    )
+
+
 def add_odometry_edge(g: PoseGraph, i, j, rel, cfg: PoseGraphConfig,
                       r_weight=1.0) -> PoseGraph:
     """Parity: addOdometryEdge, weight 1; r_weight > 1 pins a gyro rotation."""

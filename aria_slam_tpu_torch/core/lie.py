@@ -49,6 +49,49 @@ def quat_normalize(q):
     return q / torch.clamp(torch.linalg.norm(q, dim=-1, keepdim=True), min=_EPS)
 
 
+def quat_identity(shape=(), dtype=torch.float32, device="cuda"):
+    q = torch.zeros(tuple(shape) + (4,), dtype=dtype, device=device)
+    q[..., 0] = 1.0
+    return q
+
+
+def quat_mul(a, b):
+    aw, ax, ay, az = a[..., 0], a[..., 1], a[..., 2], a[..., 3]
+    bw, bx, by, bz = b[..., 0], b[..., 1], b[..., 2], b[..., 3]
+    return torch.stack(
+        [
+            aw * bw - ax * bx - ay * by - az * bz,
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw,
+        ],
+        -1,
+    )
+
+
+def quat_rotate(q, v):
+    """Rotate vectors (...,3) by unit quaternions (...,4)."""
+    qv = q[..., 1:]
+    w = q[..., :1]
+    t = 2.0 * cross(qv, v)
+    return v + w * t + cross(qv, t)
+
+
+def quat_to_mat(q):
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    xx, yy, zz = x * x, y * y, z * z
+    wx, wy, wz = w * x, w * y, w * z
+    xy, xz, yz = x * y, x * z, y * z
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy)], -1),
+            torch.stack([2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)], -1),
+            torch.stack([2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)], -1),
+        ],
+        -2,
+    )
+
+
 def mat_to_quat(R):
     """(...,3,3) -> (...,4). Shepperd's method, branchless via where."""
     m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
@@ -88,6 +131,16 @@ def mat_to_quat(R):
 
 
 # ----------------------------------------------------------------------- SO(3)
+def so3_exp_quat(phi):
+    """Rotation vector (...,3) -> quaternion (...,4)."""
+    angle = _safe_norm(phi, keepdim=True)
+    half = 0.5 * angle
+    small = angle < 1e-6
+    sinc_half = torch.where(small, 0.5 - angle**2 / 48.0,
+                            torch.sin(half) / torch.clamp(angle, min=_EPS))
+    return torch.cat([torch.cos(half), phi * sinc_half], -1)
+
+
 def so3_log_quat(q):
     """Quaternion (...,4) -> rotation vector (...,3)."""
     q = torch.where(q[..., :1] < 0, -q, q)  # shortest arc

@@ -25,6 +25,10 @@ from aria_slam_tpu_torch.ops.cuda.patch_kernel import extract_patches_levels
 from aria_slam_tpu_torch.ops.pyramid import build_pyramid
 
 
+# frames per BRIEF product (see extract_batch)
+BRIEF_FRAMES = 4
+
+
 def features_per_level(num_features: int, num_levels: int, scale_factor: float) -> List[int]:
     f = 1.0 / scale_factor
     raw = [f**i for i in range(num_levels)]
@@ -61,8 +65,15 @@ def extract_batch(imgs: torch.Tensor, cfg: OrbConfig) -> Features:
     xys, resps, valids = zip(*(_select_keypoints(rank, quota, cfg.edge_threshold)
                                for rank, quota in zip(ranks, quotas)))
     blurred = [brief.smooth_for_brief(limgs).contiguous() for limgs in levels]
-    patches = extract_patches_levels(blurred, xys, brief.PATCH_R)  # (B, N, 39, 39)
-    desc, angle = brief.describe_and_orient(patches.flatten(2), pattern)
+    patches = extract_patches_levels(blurred, xys, brief.PATCH_R).flatten(2)  # (B, N, 39 * 39)
+    # the BRIEF product's result is (frames, N, 30 * bits + 2) float32, 61 MB
+    # a frame at 2000 features: a few frames at a time keeps a chunk of 33
+    # frames from holding 2 GB at once (bits are differences of two bf16
+    # pixels, exact whatever the grouping)
+    parts = [brief.describe_and_orient(patches[s:s + BRIEF_FRAMES], pattern)
+             for s in range(0, bsz, BRIEF_FRAMES)]
+    desc = torch.cat([d for d, _ in parts])
+    angle = torch.cat([a for _, a in parts])
     scales = [cfg.scale_factor**lvl for lvl in range(cfg.num_levels)]
 
     # per-level quotas sum exactly to num_features: concatenation gives

@@ -12,10 +12,12 @@ Phases, one line each; any failure raises and exits non-zero:
               and prints nvcc's -Xptxas -v report.
 3. kernels -- each kernel against its plain PyTorch version on the card,
               at the shapes of the online VO slice (752x480, 8 levels,
-              2000 features): the corner maps bit-equal at B = 1 and 3,
-              the match results bit-exact on nine cases up to N = 256
-              pairs of 2000x2000, the patches of all 8 levels exactly
-              equal at B = 1 and 3 (detector keypoints, and edge centres),
+              2000 features) and of the chunked path (B = 33 frames,
+              N = 32 and 29 pairs): the corner maps bit-equal at B = 1, 3
+              and 33, the match results bit-exact on eleven cases up to
+              N = 256 pairs of 2000x2000, the patches of all 8 levels
+              exactly equal at B = 1, 3 and 33 (detector keypoints, and
+              edge centres),
               and rBRIEF from one product over all levels against one a
               level (bits identical where the angle bin is; changed bins
               printed). Device times (CUDA graph replay, launch cost
@@ -23,19 +25,34 @@ Phases, one line each; any failure raises and exits non-zero:
               exists, PyTorch calls computing the same function (timed
               here, never used by the port), beside the least time the
               card could take and the kernel's time with its launch cost;
-              the corner and patch kernels also at B = 33 frames, the
-              match kernel also at N = 4 and 256.
-4. slice   -- 40 rendered frames through the port's own entry points
+              the corner and patch kernels also at B = 33 frames (the
+              chunked front end's one launch a chunk), the match kernel
+              also at N = 4, 32 (a chunk's consecutive pairs) and 256.
+4. slice   -- 20 rendered frames through the port's own entry points
               (factory.create_gpu, SlamPipeline.process_imu /
               process_frame / finalize) in the VO-only configuration at
               full EuRoC width; checks the kernels' launch counts (one
               launch each of the corner, patch and match kernels a
               frame), the VO success share and the Sim3 ATE against the
               rendered ground truth.
+5. chunked -- 97 rendered frames (3 chunks of 32 with an overlap of 1) with
+              their IMU stream and gyro priors through
+              eval.chunked.ChunkedSlam.process_chunk x 3 and finalize():
+              the front end batched over the 32 + 29 pairs of a chunk,
+              chunk BA, the IMU metric scale and the pose-graph chain.
+              Prints the StageTimer's ms a chunk and stage (first chunk
+              apart), ms a frame, peak memory, the share of pairs that
+              succeeded, the IMU correction and the Sim3 ATE; checks the
+              launch counts (a chunk: corner 1, patch 1, match 2), at
+              least 90 % of pairs, finite poses and ATE < 0.35 m. With
+              --profile also the kernels and cudaLaunchKernel calls of
+              one steady chunk and the device's busy share.
 
 The line before the last holds the card's name and power limit as
-nvidia-smi reports them, the one before it the kernels' JSON record, and
-the last line is {"ok": true, "device": {...}}.
+nvidia-smi reports them, the one before it the kernels' JSON record (each
+kernel at the online slice's shape with that slice's launches, and at the
+chunked path's shape with that path's), and the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -64,7 +81,10 @@ INT8_OPS_PER_MS = 1979e12 / 1e3
 # bound of earlier records only.
 PLAIN_CORNER_OPS_PER_PX = 16 + 16 + 256 + 30 + 3 + 11 + 14 + 3 + 36 + 7 + 1
 
-NUM_FRAMES = 40
+NUM_FRAMES = 20          # the online slice
+CHUNK = 32
+NUM_CHUNKS = 3
+CHUNKED_FRAMES = NUM_CHUNKS * CHUNK + 1
 FPS = 10.0
 
 
@@ -209,6 +229,8 @@ def check_match(dev, rng):
              "ragged": case(2, 300, 777), "dups": case(1, 500, 600, dup=True),
              "all_invalid": case(1, 70, 130, all_invalid=True), "kt1": case(3, 65, 1, 0.0),
              "kq5": case(3, 5, 640), "kt1001": case(2, 700, 1001),
+             "N32": case_on_card(32, 2000, 2000, seed=2),
+             "N29": case_on_card(29, 2000, 2000, seed=3),
              "N256": case_on_card(256, 2000, 2000)}
     for name, args in cases.items():
         got = mk.match_top2_batched(*args)
@@ -222,7 +244,7 @@ def check_match(dev, rng):
         torch.cuda.empty_cache()  # the plain N = 256 run holds ~20 GB of temporaries
     sms = _lib.sm_count(dev.index)
     rows, plans = {}, {}
-    for name in ("N1", "N4", "N256"):
+    for name in ("N1", "N4", "N32", "N256"):
         q, t, v = cases[name]
         n, kq, kt = q.shape[0], q.shape[1], t.shape[1]
         slices, _ = mk.split_plan(n, kq, kt, sms)
@@ -236,17 +258,26 @@ def check_match(dev, rng):
     q, t, v = cases["N1"]
     launch_ms = cuda_ms(lambda: mk.match_top2_batched(q, t, v), iters=50)
     plain_ms = graph_ms(lambda: mk.match_top2_plain(q, t, v))
-    log("kernels", f"match: bit-exact on {len(cases)} cases; plain N=1 {plain_ms:.4f} ms; "
+    q32, t32, v32 = cases["N32"]
+    rows["N32"]["launch_ms"] = cuda_ms(lambda: mk.match_top2_batched(q32, t32, v32), iters=10)
+    rows["N32"]["plain_ms"] = graph_ms(lambda: mk.match_top2_plain(q32, t32, v32),
+                                       iters=2, replays=3)
+    log("kernels", f"match: bit-exact on {len(cases)} cases; plain N=1 {plain_ms:.4f} ms, "
+                   f"N=32 {rows['N32']['plain_ms']:.4f} ms; "
                    + "; ".join(f"{k} 2000x2000 kernel {r['ms']:.4f} ms (bound {r['bound_ms']:.5f} "
                                f"ms, {r['bound_by']}; {plans[k]['slices']} slices, "
                                f"{plans[k]['blocks']} blocks)" for k, r in rows.items())
-                   + f"; N1 with launch cost {launch_ms:.4f} ms")
-    return dict(name="match_top2", route="cuda",
-                source="aria_slam_tpu_torch/csrc/match_kernel.cu",
-                replaces="aria_slam_tpu/ops/pallas/match_kernel.py:56",
-                max_abs_err=0.0, ms=rows["N1"]["ms"], plain_ms=plain_ms,
-                bound_ms=rows["N1"]["bound_ms"], bound_by=rows["N1"]["bound_by"],
-                library_ms=None, launch_ms=launch_ms), {"match": rows, "match_plans": plans}
+                   + f"; with launch cost N1 {launch_ms:.4f} ms, N32 "
+                     f"{rows['N32']['launch_ms']:.4f} ms")
+    rows["N1"].update(plain_ms=plain_ms, launch_ms=launch_ms)
+    common = dict(route="cuda", source="aria_slam_tpu_torch/csrc/match_kernel.cu",
+                  replaces="aria_slam_tpu/ops/pallas/match_kernel.py:56", max_abs_err=0.0,
+                  library_ms=None, wrapper="match_top2_batched")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "launch_ms")
+    return [dict(name="match_top2 N=1", path="online", **common,
+                 **{k: rows["N1"][k] for k in keys}),
+            dict(name="match_top2 N=32", path="chunked", **common,
+                 **{k: rows["N32"][k] for k in keys})], {"match": rows, "match_plans": plans}
 
 
 def pyramid_levels(frames, cfg, dev):
@@ -278,7 +309,7 @@ def check_corner(frames, cfg, dev):
 
     thr, hb = cfg.fast_threshold, cfg.harris_block_size
     corners = []
-    for b in (3, 1):
+    for b in (33, 3, 1):
         levels = pyramid_levels(frames[:b], cfg, dev)
         for lvl, got in zip(levels, ck.corner_rank_maps(levels, thr, hb)):
             want = ck.corner_rank_map_plain(lvl, thr, hb)
@@ -300,24 +331,32 @@ def check_corner(frames, cfg, dev):
         plain_b_ms, _ = bound(2 * 4 * px, PLAIN_CORNER_OPS_PER_PX * px, F32_OPS_PER_MS)
         rows[f"B{b}"] = dict(ms=ms, bound_ms=b_ms, bound_by=by, ops_per_px=ops / px,
                              plain_ops_bound_ms=plain_b_ms, megapixels=px / 1e6)
-    levels = pyramid_levels(frames[:1], cfg, dev)
-    launch_ms = cuda_ms(lambda: ck.corner_rank_maps(levels, thr, hb), iters=50)
-    plain_ms = graph_ms(lambda: [ck.corner_rank_map_plain(lvl, thr, hb) for lvl in levels],
-                        iters=5, replays=4)
-    log("kernels", f"corner: bit-equal (torch.equal) on {len(levels)} levels x B=1,3; "
-                   f"corners per level {corners}; plain B=1 {plain_ms:.4f} ms; "
+    for b in (1, 33):
+        levels = pyramid_levels(frames[:b], cfg, dev)
+        big = b > 1
+        rows[f"B{b}"]["launch_ms"] = cuda_ms(lambda: ck.corner_rank_maps(levels, thr, hb),
+                                             iters=10 if big else 50)
+        rows[f"B{b}"]["plain_ms"] = graph_ms(
+            lambda: [ck.corner_rank_map_plain(lvl, thr, hb) for lvl in levels],
+            iters=2 if big else 5, replays=2 if big else 4)
+    launch_ms, plain_ms = rows["B1"]["launch_ms"], rows["B1"]["plain_ms"]
+    log("kernels", f"corner: bit-equal (torch.equal) on {len(levels)} levels x B=1,3,33; "
+                   f"corners per level {corners}; plain B=1 {plain_ms:.4f} ms, B=33 "
+                   f"{rows['B33']['plain_ms']:.4f} ms; "
                    + "; ".join(f"{k} one launch {r['ms']:.4f} ms (bound {r['bound_ms']:.5f} ms, "
                                f"{r['bound_by']}, {r['ops_per_px']:.1f} ops/px needed, "
                                f"{r['megapixels']:.3f} Mpx; {r['plain_ops_bound_ms']:.5f} ms "
                                f"at the plain version's {PLAIN_CORNER_OPS_PER_PX} ops/px)"
                                for k, r in rows.items())
                    + f"; B1 with launch cost {launch_ms:.4f} ms")
-    return dict(name="corner_rank_map", route="cuda",
-                source="aria_slam_tpu_torch/csrc/corner_kernel.cu",
-                replaces="aria_slam_tpu/ops/pallas/corner_kernel.py:125",
-                max_abs_err=0.0, ms=rows["B1"]["ms"], plain_ms=plain_ms,
-                bound_ms=rows["B1"]["bound_ms"], bound_by=rows["B1"]["bound_by"],
-                library_ms=None, launch_ms=launch_ms), {"corner": rows}
+    common = dict(route="cuda", source="aria_slam_tpu_torch/csrc/corner_kernel.cu",
+                  replaces="aria_slam_tpu/ops/pallas/corner_kernel.py:125", max_abs_err=0.0,
+                  library_ms=None, wrapper="corner_rank_maps")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "launch_ms")
+    return [dict(name="corner_rank_map B=1", path="online", **common,
+                 **{k: rows["B1"][k] for k in keys}),
+            dict(name="corner_rank_map B=33", path="chunked", **common,
+                 **{k: rows["B33"][k] for k in keys})], {"corner": rows}
 
 
 def centres_anywhere(rng, b: int, shape, n: int, dev):
@@ -371,7 +410,7 @@ def check_patch(frames, cfg, dev, rng):
     radius = brief.PATCH_R
     # all 8 levels in one call, exact: the detector's keypoints, and the
     # same plus 64 centres a level anywhere, edges and corners included
-    for b in (1, 3):
+    for b in (1, 3, 33):
         inputs = level_inputs(frames[:b], cfg, dev)
         blurred = [img for _, img, _ in inputs]
         det = [xy for _, _, xy in inputs]
@@ -383,6 +422,10 @@ def check_patch(frames, cfg, dev, rng):
             if not torch.equal(got, want):
                 raise AssertionError(f"patch B={b} {what}: differs from the plain version at "
                                      f"{int((got != want).sum())} of {got.numel()} floats")
+        if b > 3:  # the chunk's shape: the BRIEF comparison would hold two 2 GB products
+            log("kernels", f"patch B={b}: one launch for {len(blurred)} levels exactly equal "
+                           "(detector keypoints, + 64 edge centres a level)")
+            continue
         changed, keys, max_da = check_descriptors(blurred, det, cfg)
         log("kernels", f"patch B={b}: one launch for {len(blurred)} levels exactly equal "
                        f"(detector keypoints, "
@@ -415,13 +458,14 @@ def check_patch(frames, cfg, dev, rng):
         f"({row['bound_by']}), with launch cost {row['launch_ms']:.4f} ms, plain "
         f"{row['plain_ms']:.4f} ms, one indexing call a level {row['library_ms']:.4f} ms"
         for k, row in rows.items()))
-    one = rows["B1"]
-    return dict(name="extract_patches", route="cuda",
-                source="aria_slam_tpu_torch/csrc/patch_kernel.cu",
-                replaces="aria_slam_tpu/ops/pallas/patch_kernel.py:60",
-                max_abs_err=0.0, ms=one["ms"], plain_ms=one["plain_ms"],
-                bound_ms=one["bound_ms"], bound_by=one["bound_by"],
-                library_ms=one["library_ms"], launch_ms=one["launch_ms"]), {"patch": rows}
+    common = dict(route="cuda", source="aria_slam_tpu_torch/csrc/patch_kernel.cu",
+                  replaces="aria_slam_tpu/ops/pallas/patch_kernel.py:60", max_abs_err=0.0,
+                  wrapper="extract_patches_levels")
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "launch_ms")
+    return [dict(name="extract_patches B=1", path="online", **common,
+                 **{k: rows["B1"][k] for k in keys}),
+            dict(name="extract_patches B=33", path="chunked", **common,
+                 **{k: rows["B33"][k] for k in keys})], {"patch": rows}
 
 
 # ----------------------------------------------------------------- slice
@@ -543,6 +587,136 @@ def profile_slice(frames, imu, cam, n: int = 5):
     return rec
 
 
+# --------------------------------------------------------------- chunked
+def chunked_inputs(frames, imu):
+    """uint8 frame stack, timestamps and per-pair gyro rotation priors of
+    the chunked run."""
+    from aria_slam_tpu_torch.fusion import gyro_prior
+
+    ts = np.arange(len(frames)) / FPS
+    gyro_R, gyro_ok = gyro_prior.pair_rotations(imu[0], imu[2], ts)
+    return np.stack(frames).astype(np.uint8), ts, gyro_R, gyro_ok
+
+
+def chunked_config(cam):
+    """The odometry path of the chunked evaluator: every default, the
+    wide-baseline scale correction on (as the accuracy benchmark sets
+    it), loop closure and mapping off."""
+    from aria_slam_tpu_torch.config import PipelineConfig
+
+    return PipelineConfig(camera=cam, enable_loop_closure=False, enable_mapping=False,
+                          enable_detection=False, vo_backbone_scale=True)
+
+
+def feed_chunk(slam, k, stack, ts, gyro_R, gyro_ok, imu):
+    s = k * CHUNK
+    slam.process_chunk(stack[s:s + CHUNK + 1], ts[s:s + CHUNK + 1], gyro_R[s:s + CHUNK],
+                       gyro_ok[s:s + CHUNK], imu)
+
+
+def run_chunked(frames, gt, imu, cam):
+    from aria_slam_tpu_torch.eval import metrics
+    from aria_slam_tpu_torch.eval.chunked import ChunkedSlam
+    from aria_slam_tpu_torch.ops.cuda import corner_kernel, match_kernel, patch_kernel
+    from aria_slam_tpu_torch.utils.profiling import StageTimer
+
+    kernels = (corner_kernel.corner_rank_maps, patch_kernel.extract_patches_levels,
+               match_kernel.match_top2_batched)
+    stack, ts, gyro_R, gyro_ok = chunked_inputs(frames, imu)
+    timer = StageTimer(device="cuda")
+    slam = ChunkedSlam(chunked_config(cam), chunk=CHUNK, seed=0, timer=timer)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2**20
+    for k in kernels:
+        k.launches = 0
+    chunk_ms, ok = [], []
+    for k in range(NUM_CHUNKS):
+        t0 = time.perf_counter()
+        feed_chunk(slam, k, stack, ts, gyro_R, gyro_ok, imu)
+        torch.cuda.synchronize()
+        chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        ok.append(slam.last_ok)
+    launches = {k.__name__: k.launches for k in kernels}
+    t0 = time.perf_counter()
+    slam.finalize()
+    torch.cuda.synchronize()
+    fin_ms = (time.perf_counter() - t0) * 1e3
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+
+    est = np.stack([T[:3, 3] for _, T in slam.trajectory])
+    ate = metrics.ate_rmse(est, gt)
+    ok_share = float(np.concatenate(ok).mean())
+    stages = timer.summary()
+    steady_ms = float(np.mean(chunk_ms[1:]))
+    log("chunked", f"{len(frames)} frames {cam.width}x{cam.height} in {NUM_CHUNKS} chunks of "
+                   f"{CHUNK}: chunk ms {', '.join(f'{m:.1f}' for m in chunk_ms)} (first apart); "
+                   f"steady {steady_ms:.1f} ms a chunk, {steady_ms / CHUNK:.2f} ms a frame; "
+                   "stages, steady mean ms (first chunk): "
+                   + "; ".join(f"{n} {v['mean_ms']:.1f} ({v['warm_ms']:.1f})"
+                               for n, v in sorted(stages.items()))
+                   + f"; finalize {fin_ms:.1f} ms; pairs ok {ok_share:.3f}; IMU correction "
+                     f"{slam._imu_corr:.4f}, lag-pin factor {slam._vis_local:.4f}; Sim3 ATE "
+                     f"{ate:.4f} m; peak memory {peak_mb:.1f} MiB ({base_mb:.1f} MiB held "
+                     f"before); launches {launches}")
+    want = {"corner_rank_maps": NUM_CHUNKS, "extract_patches_levels": NUM_CHUNKS,
+            "match_top2_batched": 2 * NUM_CHUNKS}
+    if launches != want:
+        raise AssertionError(f"chunked launch counts {launches}, expected {want}")
+    if not ok_share >= 0.9:
+        raise AssertionError(f"share of pairs that succeeded {ok_share:.3f} < 0.9")
+    if est.shape != gt.shape or not np.isfinite(est).all():
+        raise AssertionError("chunked trajectory has a wrong shape or a non-finite pose")
+    if not ate < 0.35:
+        raise AssertionError(f"chunked Sim3 ATE {ate} m (limit 0.35 m)")
+    return launches, dict(chunk_ms=chunk_ms, ms_per_frame=steady_ms / CHUNK, stages=stages,
+                          finalize_ms=fin_ms, ate_m=ate, pairs_ok=ok_share,
+                          imu_corr=slam._imu_corr, vis_local=slam._vis_local,
+                          peak_mib=peak_mb)
+
+
+def profile_chunked(frames, imu, cam):
+    """One steady chunk (the third) under torch.profiler: wall ms, the
+    card's busy ms, device kernels and copies, cudaLaunchKernel calls."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from aria_slam_tpu_torch.eval.chunked import ChunkedSlam
+
+    stack, ts, gyro_R, gyro_ok = chunked_inputs(frames, imu)
+    slam = ChunkedSlam(chunked_config(cam), chunk=CHUNK, seed=0)
+    for k in range(NUM_CHUNKS - 1):
+        feed_chunk(slam, k, stack, ts, gyro_R, gyro_ok, imu)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        feed_chunk(slam, NUM_CHUNKS - 1, stack, ts, gyro_R, gyro_ok, imu)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    table = prof.key_averages()
+    launch = [e for e in table if e.key == "cudaLaunchKernel"]
+    n_launch = int(launch[0].count) if launch else 0
+    launch_host_ms = launch[0].self_cpu_time_total / 1e3 if launch else 0.0
+    top_dev = sorted((e for e in table if e.self_device_time_total > 0),
+                     key=lambda e: e.self_device_time_total, reverse=True)[:12]
+    top_host = sorted(table, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
+    rec = dict(wall_ms=wall_ms, device_busy_ms=busy_ms, device_events=len(dev),
+               cuda_launch_kernel_calls=n_launch, cuda_launch_kernel_host_ms=launch_host_ms,
+               top_device_ms=[(e.key, e.self_device_time_total / 1e3, e.count) for e in top_dev],
+               top_host_ms=[(e.key, e.self_cpu_time_total / 1e3, e.count) for e in top_host])
+    log("profile", f"chunked, one steady chunk of {CHUNK}: wall {wall_ms:.1f} ms "
+                   f"({wall_ms / CHUNK:.2f} ms a frame), device busy {busy_ms:.2f} ms "
+                   f"({100 * busy_ms / wall_ms:.2f} %), {len(dev)} device kernels+copies, "
+                   f"{n_launch} cudaLaunchKernel calls ({launch_host_ms:.1f} ms of host time); "
+                   "top device ops "
+                   + ", ".join(f"{k} {ms:.2f} ms x{c}" for k, ms, c in rec["top_device_ms"][:6]))
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -575,33 +749,37 @@ def main() -> int:
     # 3. kernels vs plain
     cam = CameraConfig(k1=0.0, k2=0.0, p1=0.0, p2=0.0)  # EuRoC intrinsics, no distortion
     t0 = time.perf_counter()
-    frames, gt, imu = render_frames(cam, NUM_FRAMES, FPS)
-    log("render", f"{NUM_FRAMES} frames {cam.width}x{cam.height} in "
+    frames, gt, imu = render_frames(cam, CHUNKED_FRAMES, FPS)
+    log("render", f"{CHUNKED_FRAMES} frames {cam.width}x{cam.height} in "
                   f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(0)
     orb_cfg = OrbConfig()
     log("kernels", f"device times below on {smi}")
-    match_rec, extra = check_match(dev, rng)
-    corner_rec, corner_extra = check_corner(frames, orb_cfg, dev)
+    match_recs, extra = check_match(dev, rng)
+    corner_recs, corner_extra = check_corner(frames, orb_cfg, dev)
     extra.update(corner_extra)
-    patch_rec, patch_extra = check_patch(frames, orb_cfg, dev, rng)
+    patch_recs, patch_extra = check_patch(frames, orb_cfg, dev, rng)
     extra.update(patch_extra)
-    records = [corner_rec, patch_rec, match_rec]
+    records = corner_recs + patch_recs + match_recs
 
-    # 4. the slice
-    launches, slice_rec = run_slice(frames, gt, imu, cam)
-    by_wrapper = {"corner_rank_map": "corner_rank_maps",
-                  "extract_patches": "extract_patches_levels", "match_top2": "match_top2_batched"}
+    # 4. the online slice, 5. the chunked path: each with the counts set to
+    # 0 just before it and read just after
+    launches = {}
+    launches["online"], slice_rec = run_slice(frames[:NUM_FRAMES], gt[:NUM_FRAMES], imu, cam)
+    launches["chunked"], chunked_rec = run_chunked(frames, gt, imu, cam)
     for r in records:
-        r["launches"] = launches[by_wrapper[r["name"]]]
+        r["launches"] = launches[r["path"]][r["wrapper"]]
+        if r["launches"] < 1:
+            raise AssertionError(f"{r['name']} was not launched on the {r['path']} path")
     if args.profile:
         extra["profile"] = profile_slice(frames, imu, cam)
+        extra["profile_chunked"] = profile_chunked(frames, imu, cam)
 
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"device": name, "nvidia_smi": smi, "kernels": records,
-                       "slice": slice_rec, "build_s": secs, "ptxas": ptxas, **extra}, f,
-                      indent=1)
+                       "slice": slice_rec, "chunked": chunked_rec, "build_s": secs,
+                       "ptxas": ptxas, **extra}, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))

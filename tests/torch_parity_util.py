@@ -70,6 +70,52 @@ class JaxChainSampler(JaxKeySampler):
         return super().__call__(valid, num_hypotheses, sample_size, stage)
 
 
+class JaxPairsSampler:
+    """The JAX chunked front end's draws for one chunk: its key k1 split
+    into one key a consecutive pair, fold_in(k1, 1) split into one key a
+    lag pair (eval/chunked.py), and inside each pair the essential stage
+    from the pair's key, the homography stage from fold_in(key, 77). The
+    port solves the consecutive pairs and then the lag pairs in one
+    batch, so the keys are concatenated in that order."""
+
+    def __init__(self, key, c: int, nlag: int):
+        keys = [jax.random.key_data(jax.random.split(key, c))]
+        if nlag:
+            keys.append(jax.random.key_data(jax.random.split(jax.random.fold_in(key, 1), nlag)))
+        self.keys = jax.random.wrap_key_data(jnp.concatenate(keys))
+
+    def __call__(self, valid, num_hypotheses, sample_size, stage):
+        keys = self.keys
+        if stage != "essential":
+            keys = jax.vmap(lambda k: jax.random.fold_in(k, 77))(keys)
+        logits = jnp.where(jnp.asarray(valid.cpu().numpy()), 0.0, -1e30)
+        assert logits.shape[0] == keys.shape[0], (logits.shape, keys.shape)
+        flat = jax.vmap(lambda k, lg: jax.random.categorical(
+            k, lg, shape=(num_hypotheses * sample_size,)))(keys, logits)
+        idx = np.asarray(flat).astype(np.int64).reshape(-1, num_hypotheses, sample_size)
+        return torch.from_numpy(idx).to(valid.device)
+
+
+class JaxChunkChainSampler:
+    """The JAX ChunkedSlam's key chain: process_chunk splits its carried
+    key into (key, k1, k2) every chunk and the front end draws from k1
+    (JaxPairsSampler). `lag` tells the consecutive from the lag pairs in
+    the port's one batch of c + (c + 1 - lag) pairs; lag = 0: no lag pairs."""
+
+    def __init__(self, key, lag: int):
+        self.chain = key
+        self.lag = lag
+        self.inner = None
+
+    def __call__(self, valid, num_hypotheses, sample_size, stage):
+        if stage == "essential":
+            self.chain, k1, _ = jax.random.split(self.chain, 3)
+            b = valid.shape[0]
+            c = (b + self.lag - 1) // 2 if self.lag else b
+            self.inner = JaxPairsSampler(k1, c, b - c)
+        return self.inner(valid, num_hypotheses, sample_size, stage)
+
+
 def to_np(tree):
     """A JAX pytree as numpy leaves (typed PRNG keys as their key data)."""
     def leaf(x):
@@ -91,3 +137,26 @@ def rendered_frames(n: int, fps: float = 5.0, t0: float = 0.0) -> np.ndarray:
         out.append(synthetic_scene.render_frame(JAX_SMALL_CFG.camera, None, pos, R,
                                                 layers=layers))
     return np.stack(out).astype(np.float32)
+
+
+def chunk_scene(n: int, fps: float = 5.0):
+    """n uint8 frames of the multi-depth scene at the small camera, their
+    timestamps, the ground-truth positions, the 200 Hz IMU stream and the
+    per-pair gyro rotation priors (the JAX package's renderer and
+    integrator, the port's numpy copy of the IMU generator)."""
+    from aria_slam_tpu.fusion import gyro_prior
+    from aria_slam_tpu.io import synthetic_scene
+    from aria_slam_tpu_torch.io import synthetic_scene as tsynth
+
+    layers = synthetic_scene.scene_layers(4.0, 0)
+    frames, gt = [], []
+    for k in range(n):
+        pos, R = synthetic_scene.trajectory(k / fps)
+        frames.append(synthetic_scene.render_frame(JAX_SMALL_CFG.camera, None, pos, R,
+                                                   layers=layers))
+        gt.append(pos)
+    ts = np.arange(n) / fps
+    imu = tsynth.imu_samples(n / fps)  # numpy, seeded
+    Rg, okg = gyro_prior.pair_rotations(imu[0], imu[2], ts)
+    return np.stack(frames).astype(np.uint8), ts, np.stack(gt), imu, Rg, okg
+

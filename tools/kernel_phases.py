@@ -15,7 +15,7 @@ graph replay, launch cost excluded):
   752x480 8-level pyramid;
 - match: copies without the tensor-core products and/or without the
   top-2 updates, or without staging the train tiles after the first, at
-  N = 1, 4 and 256 pairs of 2000x2000 descriptors;
+  N = 1, 4, 32 and 256 pairs of 2000x2000 descriptors;
 - patch: copies without the staging copies into shared memory and/or
   without the float4 stores, and one that stages through registers
   (`__ldg`) instead of `cp.async`, at B = 1 and B = 33 frames of the
@@ -163,7 +163,7 @@ def main() -> int:
                  torch.randint(0, 2, (n, 2000, 256), generator=gen, device=dev,
                                dtype=torch.int8),
                  torch.rand((n, 2000), generator=gen, device=dev) >= 0.1)
-             for n in (1, 4, 256)}
+             for n in (1, 4, 32, 256)}
     patches = {}
     for b in (1, 33):
         inputs = cs.level_inputs(frames[:b], cfg, dev)
