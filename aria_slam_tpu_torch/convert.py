@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from aria_slam_tpu_torch.core.types import Features, PoseGraph
+from aria_slam_tpu_torch.core.types import Features, KeyframeDB, PoseGraph
 from aria_slam_tpu_torch.pipeline.slam_pipeline import FrameState
 
 
@@ -56,9 +56,11 @@ def chunked_state_from_numpy(slam, state) -> None:
     file works): the pose graph as `graph.<field>`, the scale carry
     `zlast` / `mlast`, the running pose `T`, `counters` (frame_count,
     num_loops, ...), `scales` (_scale, _imu_corr, _vis_corr, _ba_corr,
-    _vis_local), the trajectory `traj_ts` / `traj_T`, and, when the IMU
-    scale estimator exists, its window as `est_*`. The keyframe DB, the
-    map and the RANSAC key are not part of the port's state."""
+    _vis_local), the trajectory `traj_ts` / `traj_T`, when the IMU
+    scale estimator exists its window as `est_*`, and with loop closure
+    on the keyframe DB as `db.<field>` and its host head mirror as
+    `counters[2]`. The map and the RANSAC key are not part of the port's
+    state."""
     from aria_slam_tpu_torch.fusion.vi_init import ScaleEstimator
 
     dev = slam.device
@@ -69,6 +71,10 @@ def chunked_state_from_numpy(slam, state) -> None:
     slam.T = np.array(state["T"], np.float32)
     slam.frame_count = int(state["counters"][0])
     slam.num_loops = int(state["counters"][1])
+    if slam.cfg.enable_loop_closure:
+        slam.db = KeyframeDB(**{name: _t(state[f"db.{name}"], dev)
+                                for name in KeyframeDB.__dataclass_fields__})
+        slam._db_head = int(state["counters"][2])
     (slam._scale, slam._imu_corr, slam._vis_corr, slam._ba_corr,
      slam._vis_local) = (float(x) for x in state["scales"][:5])
     slam.trajectory = [(float(t), np.array(T)) for t, T in

@@ -3,8 +3,8 @@
 Capacity-padded fixed-shape tensors with validity masks, exactly as the
 JAX package lays them out, so the tests compare like with like and
 convert.py can carry a JAX carry over field for field. `EkfState`,
-`Detections`, `KeyframeDB` and `MapState` belong to features the port
-does not run yet (see ROADMAP.md queue 1).
+`Detections` and `MapState` belong to features the port does not run
+yet (see ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -90,6 +90,22 @@ class PoseGraph(_TensorTree):
     edge_valid: torch.Tensor   # (E,) bool
     num_nodes: torch.Tensor    # () int32
     num_edges: torch.Tensor    # () int32
+
+
+@dataclasses.dataclass
+class KeyframeDB(_TensorTree):
+    """Device-resident keyframe descriptor ring, padded to `max_keyframes`
+    slots (backend/keyframe_db.py)."""
+
+    desc: torch.Tensor        # (N, F, 256) int8 bits
+    xy: torch.Tensor          # (N, F, 2) float32 keypoint coords
+    desc_valid: torch.Tensor  # (N, F) bool
+    hist: torch.Tensor        # (N, 256) float32 mean bit frequencies (prefilter)
+    frame_id: torch.Tensor    # (N,) int32 source frame index (-1 = empty)
+    pose: torch.Tensor        # (N, 4, 4) float32 world-from-camera at insert
+    covis: torch.Tensor       # (N, N) bool covisibility between slots
+    size: torch.Tensor        # () int32 occupied slots
+    head: torch.Tensor        # () int32 next slot to write
 
 
 def make_empty_features(capacity: int, bits: int = 256,

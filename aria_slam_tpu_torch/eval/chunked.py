@@ -1,5 +1,5 @@
-"""Chunked offline SLAM evaluation, odometry path (counterpart of the JAX
-package's eval/chunked.py).
+"""Chunked offline SLAM evaluation (counterpart of the JAX package's
+eval/chunked.py): the odometry path and loop closure.
 
 Offline evaluation has the whole sequence on disk, so frames run in
 chunks: one front-end pass extracts C+1 frames, matches the C consecutive
@@ -10,7 +10,12 @@ that of a single pair. The host then chains 4x4 poses, refines them by
 chunk bundle adjustment, feeds the IMU metric-scale estimator and
 extends the pose graph in chunk-sized batches.
 
-Loop closure, mapping and detection are not ported yet: asking for them
+Loop closure runs once a chunk as well: the histogram prefilter and the
+exact candidate scores of all C frames against the keyframe DB before
+this chunk's insert (`lc_query`, one match kernel launch for the C x 8
+candidate pairs), then one batched verification of the best pairs
+(`verify_batch`, one more launch), loop edges and a pose-graph
+optimisation. Mapping and detection are not ported yet: asking for them
 raises NotImplementedError naming the ROADMAP.md item that will port
 them; `snapshot` / `restore` / `export_map` / `get_map` come with them.
 """
@@ -22,12 +27,17 @@ import contextlib
 import numpy as np
 import torch
 
-from aria_slam_tpu_torch.backend import chunk_ba, keyframe_db, pose_graph
+from aria_slam_tpu_torch.backend import chunk_ba, keyframe_db, loop_closure, pose_graph
 from aria_slam_tpu_torch.config import PipelineConfig
-from aria_slam_tpu_torch.core.types import Features
+from aria_slam_tpu_torch.core.types import Features, KeyframeDB
 from aria_slam_tpu_torch.ops import epipolar, match as match_ops, orb
 from aria_slam_tpu_torch.ops.undistort import undistort_points
 from aria_slam_tpu_torch.pipeline.slam_pipeline import resolve_device
+
+# the least number of loop-closure candidate pairs verified a chunk; the
+# budget is max(VERIFY_MAX, chunk), so the per-frame budget stays the
+# same as chunks grow
+VERIFY_MAX = 16
 
 # wide-baseline scale correction (config.vo_backbone_scale): per-chunk
 # log-EMA gain on the median backbone/chain displacement ratio, and the
@@ -46,7 +56,6 @@ BA_PIN_MIN_LANDMARKS = 50.0
 
 # flag -> the ROADMAP.md queue-1 item that ports it
 _UNPORTED = {
-    "enable_loop_closure": "queue 1 item 6 (loop closure: lc_query, scores_chunk, verify_batch)",
     "enable_mapping": "queue 1 item 5 (mapping/mapper.py)",
     "enable_detection": "queue 1 item 8 (detector)",
 }
@@ -215,16 +224,61 @@ def pairs(feats: Features, zlast, mlast, sampler, gyro_R, gyro_ok,
     return out
 
 
+def scores_chunk(db: KeyframeDB, desc, dvalid, slots, ratio: float) -> torch.Tensor:
+    """Exact ratio-test match scores of every (chunk frame, candidate)
+    pair in ONE match kernel launch over C x k pairs: the query
+    descriptors repeated per candidate (interleaved, so the counts
+    reshape to (C, k)), the candidates' gathered from the DB. desc (C, F,
+    B), dvalid (C, F), slots (C, k) -> (C, k) matches / valid queries."""
+    c, k = slots.shape
+    flat = slots.reshape(-1)
+    q = torch.repeat_interleave(desc, k, dim=0)  # (C k, F, B), 131 MB at C = 32, F = 2000
+    best, second, _ = match_ops.match_top2_batched(q, db.desc[flat], db.desc_valid[flat])
+    del q  # the gathered candidates went with the call
+    good = match_ops.ratio_gate(torch.repeat_interleave(dvalid, k, dim=0), best, second, ratio)
+    num_q = torch.clamp(dvalid.float().sum(1), min=1.0)
+    return good.float().sum(1).reshape(c, k) / num_q[:, None]
+
+
+def lc_query(db: KeyframeDB, hists, fids, desc, dvalid, cfg: PipelineConfig):
+    """The histogram prefilter and the exact candidate scores of a chunk
+    -> (sims (C, k), slots (C, k), scores (C, k))."""
+    sims, slots = loop_closure.batch_candidates(db, hists, fids, cfg.loop)
+    return sims, slots, scores_chunk(db, desc, dvalid, slots, cfg.loop.ratio)
+
+
+def verify_batch(db: KeyframeDB, desc, xy, dvalid, z2, m2, scales, fidx, slots, sampler,
+                 scale_corr, cfg: PipelineConfig, K):
+    """Geometric verification of (chunk frame fidx, DB slot) pairs at
+    once, fidx / slots (V,). z2 / m2 / scales: the chunk's odometry unit
+    depths, their mask and the pairs' metric scales, so loop-edge
+    translations land in the odometry's metric; scale_corr: the
+    correction those scales were built with. -> (passed, num_inliers,
+    T_rel (V, 4, 4), t_weight)."""
+    kq = desc.shape[1]
+    v = fidx.shape[0]
+    zeros = torch.zeros((v, kq), dtype=torch.float32, device=desc.device)
+    feats = Features(xy=xy[fidx], response=zeros, angle=zeros,
+                     octave=zeros.to(torch.int32), size=zeros, desc=desc[fidx],
+                     valid=dvalid[fidx])
+    return loop_closure.verify_candidate(
+        db, feats, slots, K, cfg.loop, cfg.ransac, sampler, cfg.vo_scale_mode,
+        cfg.vo_scene_depth, depths=z2[fidx], depth_mask=m2[fidx], depth_scale=scales[fidx],
+        scale_corr=scale_corr)
+
+
 class ChunkedSlam:
-    """Offline chunked evaluator, odometry path: the trajectory of
-    SlamPipeline at batch throughput, with chunk BA, the IMU metric scale
-    and the pose-graph chain.
+    """Offline chunked evaluator: the trajectory and loops of
+    SlamPipeline at batch throughput, with chunk BA, the IMU metric
+    scale, the pose-graph chain and loop closure.
 
     Runs on CUDA unless `device` says otherwise (a missing card raises).
     RANSAC draws from an explicit torch.Generator seeded with `seed`, or
-    from `sampler` when given (see ops/epipolar.py). timer: optional
-    utils.profiling.StageTimer for the per-stage breakdown (frontend /
-    chunk_ba / imu_scale / state_update / backbone_edges)."""
+    from `sampler` when given (see ops/epipolar.py); the loop
+    verification calls it with the stage "loop_essential" /
+    "loop_homography". timer: optional utils.profiling.StageTimer for the
+    per-stage breakdown (frontend / chunk_ba / imu_scale / loop_query /
+    state_update / backbone_edges / loop_verify / loop_optimize)."""
 
     def __init__(self, config: PipelineConfig, chunk: int = 16, seed: int = 0,
                  timer=None, device=None, sampler=None):
@@ -254,9 +308,21 @@ class ChunkedSlam:
         # state
         self.graph = pose_graph.init_graph(config.pose_graph, self.device)
         self.graph = pose_graph.set_node(self.graph, 0, torch.eye(4, device=self.device))
+        self.db = (keyframe_db.init_db(config.loop, config.orb, self.device)
+                   if config.enable_loop_closure else None)
         self.T = np.eye(4, dtype=np.float32)
         self.frame_count = 0
         self.num_loops = 0
+        # accepted loop edges as (matched_node, query_node) frame ids
+        self.loop_pairs: list = []
+        # opt-in loop-closure diagnostics: set to [] before a run to collect,
+        # a chunk, the prefilter candidates' frame ids, the exact scores, the
+        # budget selection and the verify verdicts (one more fetch a chunk
+        # that verifies). The JAX package's eval/longrun.py attributes each
+        # missed loop to a stage from them; until that tool is ported only
+        # the tests read them.
+        self.lc_diag: list | None = None
+        self._db_head = 0  # host mirror of db.head
         self.trajectory: list = []
         self.last_ok = np.zeros((0,), bool)  # the last chunk's per-pair success flags
         # scale-propagation carry: last frame's unit depths (device) and
@@ -512,17 +578,38 @@ class ChunkedSlam:
                 self._imu_corr = self._scale_est.update(
                     np.asarray(timestamps[1:], np.float64), poses_np, *imu_window)
 
-        # ---- post-chunk state commit: the pose-graph chain
+        # ---- loop-closure query against the DB as it was before this
+        # chunk's insert: at capacity the insert evicts the c oldest
+        # keyframes, the likeliest revisit targets. It runs every chunk,
+        # against an empty DB too.
         first_node = self.frame_count
+        head_before = self._db_head
+        if cfg.enable_loop_closure:
+            # global frame index of each 'cur' frame; node id == frame id
+            fids = torch.arange(first_node, first_node + c, dtype=torch.int32, device=dev)
+            with self._st("loop_query"):
+                query = fetch_many(lc_query(self.db, out["hists"], fids, out["desc"],
+                                            out["dvalid"], cfg))
+
+        # ---- post-chunk state commit: the pose-graph chain and the
+        # keyframe-DB insert
         chain_rwt = cfg.pose_graph.gyro_rot_weight if gyro_full else 1.0
         with self._st("state_update"):
+            poses_dev = torch.from_numpy(poses_np).to(dev)
             self.graph = pose_graph.extend_chain(
-                self.graph, torch.from_numpy(poses_np).to(dev),
-                torch.from_numpy(rels).to(dev), first_node, self._odom_twt, chain_rwt)
+                self.graph, poses_dev, torch.from_numpy(rels).to(dev), first_node,
+                self._odom_twt, chain_rwt)
+            if cfg.enable_loop_closure:
+                self.db = keyframe_db.add_keyframes_batch(
+                    self.db, out["desc"], out["xy"], out["dvalid"], fids, poses_dev)
+                self._db_head = (head_before + c) % cfg.loop.max_keyframes
 
         # ---- wide-baseline backbone (node i-lag -> node i)
         if "Rl" in out:
             self._backbone(out, scales, T_start, poses_np, first_node)
+
+        if cfg.enable_loop_closure:
+            self._close_loops(out, c, query, scales, corr_before, head_before)
 
         for i in range(c):
             self.trajectory.append((timestamps[i + 1], poses_np[i]))
@@ -589,12 +676,114 @@ class ChunkedSlam:
                 torch.from_numpy(rels_l).to(dev), cfg.pose_graph.backbone_weight,
                 torch.from_numpy(bvalid).to(dev))
 
+    def _close_loops(self, out, c, query, scales, corr_before, head_before) -> None:
+        """Verify the chunk's best (frame, candidate) pairs in one batch,
+        add a loop edge for the first passing candidate of each frame and
+        re-optimise the graph. query: the host copies of lc_query's
+        (sims, slots, scores), taken before this chunk's insert."""
+        cfg = self.cfg
+        dev = self.device
+        sims, slots_np, scores = query
+        cap = cfg.loop.max_keyframes
+        loop_found = False
+        accepted_pairs: list = []  # (chunk fidx, matched DB slot)
+        diag = None
+        if self.lc_diag is not None:
+            diag = {"base": int(self.frame_count), "c": int(c), "cand_fid": None,
+                    "scores": None, "sel": [], "fidx": None, "passed": None}
+            self.lc_diag.append(diag)
+        if (sims[:, 0] > 0).any():
+            scores[sims <= 0] = -1.0
+            # the budget scales with the chunk, and the selection is
+            # per-frame best first: every frame's top candidate competes
+            # before any frame's second. The order of equal scores is
+            # numpy's, as in the reference.
+            vm = max(VERIFY_MAX, c)
+            nk = scores.shape[1]
+            rank = np.argsort(-scores, axis=1)  # per-frame ranking
+            sel: list = []
+            for r_ in range(nk):
+                cols = rank[:, r_]
+                vals = scores[np.arange(c), cols]
+                for i in np.argsort(-vals):
+                    if vals[i] >= cfg.loop.min_score:
+                        sel.append(i * nk + cols[i])
+            sel = sel[:vm]
+            if diag is not None:
+                # slots this chunk's insert overwrote now hold other
+                # keyframes: flagged -2 (the rule of the live mask below)
+                cand = self.db.frame_id.cpu().numpy()[slots_np]
+                dead = (slots_np - head_before) % cap < c
+                diag.update(cand_fid=np.where(dead, -2, cand), scores=scores.copy(),
+                            sel=list(sel))
+            if sel:
+                # padded to vm pairs: fixed shapes on the card, fixed draws
+                fidx = np.zeros(vm, np.int32)
+                sl = np.zeros(vm, np.int32)
+                live = np.zeros(vm, bool)
+                for n_, p in enumerate(sel):
+                    i, j = np.unravel_index(p, scores.shape)
+                    fidx[n_] = i
+                    sl[n_] = slots_np[i, j]
+                    # the query read the pre-insert DB but verification
+                    # gathers from the post-insert one: a candidate slot
+                    # this chunk's insert overwrote holds another keyframe
+                    live[n_] = (sl[n_] - head_before) % cap >= c
+                with self._st("loop_verify"):
+                    res = verify_batch(
+                        self.db, out["desc"], out["xy"], out["dvalid"], out["Z2"], out["M2"],
+                        torch.from_numpy(scales).to(dev),
+                        torch.from_numpy(fidx).long().to(dev),
+                        torch.from_numpy(sl).long().to(dev),
+                        lambda v, h, s, stage: self._sampler(v, h, s, "loop_" + stage),
+                        # the correction the chunk's scales were built with
+                        torch.tensor(corr_before, dtype=torch.float32, device=dev),
+                        cfg, self.K)
+                    passed, n_inl, T_rels, twts, db_fids = fetch_many([*res, self.db.frame_id])
+                    passed = passed & live
+                if diag is not None:
+                    diag.update(fidx=fidx.copy(), passed=passed.copy(), n_inliers=n_inl.copy())
+                done_frames: set = set()
+                for n_ in range(vm):
+                    if not passed[n_] or int(fidx[n_]) in done_frames:
+                        continue
+                    done_frames.add(int(fidx[n_]))
+                    node = self.frame_count + int(fidx[n_])
+                    matched_node = int(db_fids[int(sl[n_])])
+                    # T_rel = T_{matched<-current}: the edge measurement
+                    # T_i^-1 T_j for (i = matched, j = node)
+                    self.graph = pose_graph.add_loop_edge(
+                        self.graph, matched_node, node, torch.from_numpy(T_rels[n_]).to(dev),
+                        cfg.pose_graph, t_weight=float(twts[n_]))
+                    self.num_loops += 1
+                    self.loop_pairs.append((matched_node, node))
+                    loop_found = True
+                    accepted_pairs.append((int(fidx[n_]), int(sl[n_])))
+                if loop_found:
+                    with self._st("loop_optimize"):
+                        self.graph = pose_graph.optimize(self.graph, cfg.pose_graph)
+        if loop_found:
+            # rebase the running pose on the optimised graph
+            self.T = pose_graph.get_pose(self.graph, self.frame_count + c - 1).cpu().numpy()
+            if self._scale_est is not None:
+                # poses after the rebase live in a corrected world frame:
+                # restart the alignment window (the correction survives)
+                self._scale_est.reset_window()
+        # covisibility: each accepted loop's matched keyframe (a live slot)
+        # with the query frame's slot (written by the insert above)
+        for fi, sl_ in accepted_pairs:
+            self.db = keyframe_db.mark_covisible(self.db, sl_, (head_before + fi) % cap)
+
     def _retro_rescale(self, ratio: float) -> None:
         g = self.graph
         node_pose, edge_rel = g.node_pose.clone(), g.edge_rel.clone()
         node_pose[:, :3, 3] *= ratio
         edge_rel[:, :3, 3] *= ratio
         self.graph = g.replace(node_pose=node_pose, edge_rel=edge_rel)
+        if self.db is not None:
+            pose = self.db.pose.clone()
+            pose[:, :3, 3] *= ratio
+            self.db = self.db.replace(pose=pose)
         self.T = self.T.copy()
         self.T[:3, 3] *= ratio
         traj = []

@@ -416,6 +416,29 @@ def pin_scale(z, mask, scene_depth: float, min_count: int = 20):
     return torch.clamp(scale, 0.01, 100.0), ok
 
 
+def mean_parallax_deg(delta: PoseDelta, xy1, xy2, valid, K):
+    """Rotation-compensated mean ray parallax in degrees over the inliers
+    -> (parallax_deg, count). Below about 0.5 degrees the essential
+    translation is noise: a zero-baseline revisit verifies with a good
+    rotation and a meaningless unit t."""
+    f1 = _homog(normalize_points(xy1, K))
+    f2 = _homog(normalize_points(xy2, K))
+    rf = f1 @ delta.R.transpose(-1, -2)  # frame-1 rays expressed in frame 2
+    cos = torch.sum(rf * f2, -1) / torch.clamp(
+        torch.linalg.norm(rf, dim=-1) * torch.linalg.norm(f2, dim=-1), min=1e-9)
+    ang = torch.rad2deg(torch.arccos(torch.clamp(cos, -1.0, 1.0)))
+    good = delta.inlier_mask & valid
+    cnt = good.float().sum(-1)
+    return torch.where(good, ang, 0.0).sum(-1) / torch.clamp(cnt, min=1.0), cnt
+
+
+def parallax_t_weight(parallax_deg, full_at_deg: float = 1.0):
+    """Translation confidence in [0, 1]: 0 below 0.2 degrees of mean
+    parallax, ramping to 1 at `full_at_deg`."""
+    lo = 0.2
+    return torch.clamp((parallax_deg - lo) / max(full_at_deg - lo, 1e-6), 0.0, 1.0)
+
+
 def estimate_pose_gyro_fused(xy_prev, xy_cur, valid, K, cfg: RansacConfig,
                              sampler, gyro_R, has_gyro, in_thresh_sq) -> PoseDelta:
     """RANSAC two-view pose; where an integrated-gyro rotation is

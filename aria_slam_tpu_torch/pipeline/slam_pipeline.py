@@ -29,7 +29,8 @@ from aria_slam_tpu_torch.ops.undistort import undistort_points
 # flag -> the ROADMAP.md queue-1 item that ports it
 _UNPORTED = {
     "enable_fusion": "queue 1 item 7 (fusion/ekf.py)",
-    "enable_loop_closure": "queue 1 item 6 (loop closure)",
+    "enable_loop_closure": ("queue 1 item 10 (the online loop closure: loop_closure.detect, "
+                            "keyframe_db.add_keyframe and the online branch)"),
     "enable_mapping": "queue 1 item 5 (mapping/mapper.py)",
     "enable_detection": "queue 1 item 8 (detector)",
     "enable_dynamic_filtering": "queue 1 item 8 (detector)",

@@ -47,22 +47,46 @@ Phases, one line each; any failure raises and exits non-zero:
               least 90 % of pairs, finite poses and ATE < 0.35 m. With
               --profile also the kernels and cudaLaunchKernel calls of
               one steady chunk and the device's busy share.
+6. loop    -- the accuracy benchmark's full-resolution configuration
+              (benchmark_config(full_res=True) of the JAX package's
+              eval/accuracy_benchmark.py: loop gates 150 / 0.3 / 40, 512
+              keyframes, vo_backbone_scale) with loop closure on: 257
+              rendered frames of the rotloop trajectory (20 s period, 10
+              fps, so frames 200-256 revisit frames 0-56) in 8 chunks of
+              32 with the IMU stream and gyro priors, then the same run
+              with loop closure off. Prints ms a chunk and a frame, the
+              StageTimer stages (loop_query / loop_verify / loop_optimize
+              among them), finalize ms, peak memory, the loops found, their
+              precision against the rendered ground truth (true when the
+              two frames lie within 0.5 m) and both Sim3 ATEs; checks the
+              launch counts (corner 8, patch 8, match 3 x 8 plus one a
+              chunk that verified; the match kernel's launches inside
+              lc_query and verify_batch are read from its counter around
+              each call, one and one), at least one loop at precision >=
+              0.9, finite poses and ATE with loops <= 1.15 x ATE without +
+              0.02 m. Then the match kernel on the last verify batch's own
+              inputs against its plain version (bit-exact) and timed there.
+              With --profile also one steady chunk that verifies.
 
 The line before the last holds the card's name and power limit as
 nvidia-smi reports them, the one before it the kernels' JSON record (each
-kernel at the online slice's shape with that slice's launches, and at the
-chunked path's shape with that path's), and the last line is
+kernel at the online slice's shape with that slice's launches, at the
+chunked path's shape with that path's, and the match kernel at the loop
+path's two shapes, the verify batch on that run's own inputs, with the
+launches counted inside lc_query and verify_batch), and the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -86,6 +110,10 @@ CHUNK = 32
 NUM_CHUNKS = 3
 CHUNKED_FRAMES = NUM_CHUNKS * CHUNK + 1
 FPS = 10.0
+LOOP_CHUNKS = 8          # the loop phase: 257 frames of the rotloop
+LOOP_FRAMES = LOOP_CHUNKS * CHUNK + 1
+LOOP_PERIOD = 20.0
+LOOP_TRUE_M = 0.5        # a loop pair is true when its frames lie this close
 
 
 def log(phase: str, msg: str) -> None:
@@ -145,6 +173,15 @@ def bound(nbytes: float, ops: float, ops_per_ms: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def match_bound(q, t, v):
+    """The match kernel's bound: its inputs read and three int32 outputs
+    written once, and a 256-bit Hamming distance (an int8 product) for
+    every query-train pair."""
+    n, kq, kt = q.shape[0], q.shape[1], t.shape[1]
+    return bound(q.numel() + t.numel() + v.numel() + 3 * 4 * n * kq,
+                 2.0 * n * kq * kt * 256, INT8_OPS_PER_MS)
+
+
 def smi_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -188,21 +225,27 @@ def corner_ops(levels, ranks, threshold: float, box_r: int) -> int:
     return ops
 
 
-def render_frames(cam, n: int, fps: float):
-    """n frames of the multi-depth synthetic scene along the sweep
-    trajectory, their ground-truth positions, and the 200 Hz IMU stream."""
+def render_frames(cam, n: int, fps: float, kind: str = "sweep", period: float = 20.0):
+    """n frames of the multi-depth synthetic scene along the trajectory
+    `kind` of the given period, their ground-truth positions, and the
+    200 Hz IMU stream."""
     from aria_slam_tpu_torch.io import synthetic_scene as ss
 
     layers = ss.scene_layers(4.0, 0)
     frames, gt = [], []
     for k in range(n):
-        pos, R = ss.trajectory(k / fps)
+        pos, R = ss.trajectory(k / fps, kind=kind, period=period)
         frames.append(ss.render_frame(cam, None, pos, R, layers=layers))
         gt.append(pos)
-    return frames, np.stack(gt), ss.imu_samples(n / fps)
+    return frames, np.stack(gt), ss.imu_samples(n / fps, traj=kind, period=period)
 
 
 # --------------------------------------------------------------- kernels
+MATCH_COMMON = dict(route="cuda", source="aria_slam_tpu_torch/csrc/match_kernel.cu",
+                    replaces="aria_slam_tpu/ops/pallas/match_kernel.py:56", library_ms=None,
+                    wrapper="match_top2_batched")
+
+
 def check_match(dev, rng):
     from aria_slam_tpu_torch.ops.cuda import _lib
     from aria_slam_tpu_torch.ops.cuda import match_kernel as mk
@@ -252,8 +295,7 @@ def check_match(dev, rng):
         big = n > 16
         ms = graph_ms(lambda: mk.match_top2_batched(q, t, v),
                       iters=5 if big else 20, replays=4 if big else 10)
-        b_ms, by = bound(q.numel() + t.numel() + v.numel() + 3 * 4 * n * kq,
-                         2.0 * n * kq * kt * 256, INT8_OPS_PER_MS)
+        b_ms, by = match_bound(q, t, v)
         rows[name] = dict(ms=ms, bound_ms=b_ms, bound_by=by)
     q, t, v = cases["N1"]
     launch_ms = cuda_ms(lambda: mk.match_top2_batched(q, t, v), iters=50)
@@ -262,22 +304,58 @@ def check_match(dev, rng):
     rows["N32"]["launch_ms"] = cuda_ms(lambda: mk.match_top2_batched(q32, t32, v32), iters=10)
     rows["N32"]["plain_ms"] = graph_ms(lambda: mk.match_top2_plain(q32, t32, v32),
                                        iters=2, replays=3)
+    # N = 256: the loop path's candidate scores (32 frames x 8 candidates)
+    q256, t256, v256 = cases["N256"]
+    rows["N256"]["launch_ms"] = cuda_ms(lambda: mk.match_top2_batched(q256, t256, v256), iters=5)
+    rows["N256"]["plain_ms"] = cuda_ms(lambda: mk.match_top2_plain(q256, t256, v256), iters=1,
+                                       warmup=0, repeats=1)
+    torch.cuda.empty_cache()
     log("kernels", f"match: bit-exact on {len(cases)} cases; plain N=1 {plain_ms:.4f} ms, "
-                   f"N=32 {rows['N32']['plain_ms']:.4f} ms; "
+                   f"N=32 {rows['N32']['plain_ms']:.4f} ms, N=256 {rows['N256']['plain_ms']:.4f} "
+                   "ms (once); "
                    + "; ".join(f"{k} 2000x2000 kernel {r['ms']:.4f} ms (bound {r['bound_ms']:.5f} "
                                f"ms, {r['bound_by']}; {plans[k]['slices']} slices, "
                                f"{plans[k]['blocks']} blocks)" for k, r in rows.items())
                    + f"; with launch cost N1 {launch_ms:.4f} ms, N32 "
                      f"{rows['N32']['launch_ms']:.4f} ms")
     rows["N1"].update(plain_ms=plain_ms, launch_ms=launch_ms)
-    common = dict(route="cuda", source="aria_slam_tpu_torch/csrc/match_kernel.cu",
-                  replaces="aria_slam_tpu/ops/pallas/match_kernel.py:56", max_abs_err=0.0,
-                  library_ms=None, wrapper="match_top2_batched")
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "launch_ms")
-    return [dict(name="match_top2 N=1", path="online", **common,
+    return [dict(name="match_top2 N=1", path="online", **MATCH_COMMON, max_abs_err=0.0,
                  **{k: rows["N1"][k] for k in keys}),
-            dict(name="match_top2 N=32", path="chunked", **common,
-                 **{k: rows["N32"][k] for k in keys})], {"match": rows, "match_plans": plans}
+            dict(name="match_top2 N=32", path="chunked", **MATCH_COMMON, max_abs_err=0.0,
+                 **{k: rows["N32"][k] for k in keys}),
+            dict(name="match_top2 N=256 (loop candidate scores)", path="loop", role="query",
+                 **MATCH_COMMON, max_abs_err=0.0, **{k: rows["N256"][k] for k in keys})], \
+        {"match": rows, "match_plans": plans}
+
+
+def check_verify_match(q, t, v):
+    """The match kernel on the loop run's own verify batch (the inputs of
+    its last launch in loop_verify) against the plain version: max
+    absolute error over (best, second, best_idx), which must be 0, and
+    the device times."""
+    from aria_slam_tpu_torch.ops.cuda import match_kernel as mk
+
+    got = mk.match_top2_batched(q, t, v)
+    want = mk.match_top2_plain(q, t, v)
+    err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+    del got, want
+    torch.cuda.empty_cache()
+    if err:
+        raise AssertionError(f"match on the loop verify batch: max abs error {err}")
+    b_ms, by = match_bound(q, t, v)
+    rec = dict(name=f"match_top2 N={q.shape[0]} (loop verify)", path="loop", role="verify",
+               **MATCH_COMMON, max_abs_err=float(err),
+               ms=graph_ms(lambda: mk.match_top2_batched(q, t, v), iters=5, replays=4),
+               launch_ms=cuda_ms(lambda: mk.match_top2_batched(q, t, v), iters=10),
+               plain_ms=graph_ms(lambda: mk.match_top2_plain(q, t, v), iters=2, replays=3),
+               bound_ms=b_ms, bound_by=by)
+    torch.cuda.empty_cache()
+    log("kernels", f"match on the loop run's verify batch ({tuple(q.shape)} x {tuple(t.shape)}, "
+                   f"{float(v.float().mean()):.3f} valid): bit-exact; kernel {rec['ms']:.4f} ms "
+                   f"(bound {b_ms:.5f} ms, {by}), with launch cost {rec['launch_ms']:.4f} ms, "
+                   f"plain {rec['plain_ms']:.4f} ms")
+    return rec
 
 
 def pyramid_levels(frames, cfg, dev):
@@ -677,24 +755,27 @@ def run_chunked(frames, gt, imu, cam):
                           peak_mib=peak_mb)
 
 
-def profile_chunked(frames, imu, cam):
-    """One steady chunk (the third) under torch.profiler: wall ms, the
+def profile_chunked(frames, imu, cfg, nchunks: int, label: str):
+    """The last of `nchunks` chunks under torch.profiler: wall ms, the
     card's busy ms, device kernels and copies, cudaLaunchKernel calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from aria_slam_tpu_torch.eval.chunked import ChunkedSlam
+    from aria_slam_tpu_torch.ops.cuda import match_kernel
 
     stack, ts, gyro_R, gyro_ok = chunked_inputs(frames, imu)
-    slam = ChunkedSlam(chunked_config(cam), chunk=CHUNK, seed=0)
-    for k in range(NUM_CHUNKS - 1):
+    slam = ChunkedSlam(cfg, chunk=CHUNK, seed=0)
+    for k in range(nchunks - 1):
         feed_chunk(slam, k, stack, ts, gyro_R, gyro_ok, imu)
     torch.cuda.synchronize()
+    match_kernel.match_top2_batched.launches = 0
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        feed_chunk(slam, NUM_CHUNKS - 1, stack, ts, gyro_R, gyro_ok, imu)
+        feed_chunk(slam, nchunks - 1, stack, ts, gyro_R, gyro_ok, imu)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    match_launches = match_kernel.match_top2_batched.launches
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
     table = prof.key_averages()
@@ -706,9 +787,11 @@ def profile_chunked(frames, imu, cam):
     top_host = sorted(table, key=lambda e: e.self_cpu_time_total, reverse=True)[:12]
     rec = dict(wall_ms=wall_ms, device_busy_ms=busy_ms, device_events=len(dev),
                cuda_launch_kernel_calls=n_launch, cuda_launch_kernel_host_ms=launch_host_ms,
+               match_launches=match_launches,
                top_device_ms=[(e.key, e.self_device_time_total / 1e3, e.count) for e in top_dev],
                top_host_ms=[(e.key, e.self_cpu_time_total / 1e3, e.count) for e in top_host])
-    log("profile", f"chunked, one steady chunk of {CHUNK}: wall {wall_ms:.1f} ms "
+    log("profile", f"{label}, one steady chunk of {CHUNK} (chunk {nchunks}, {match_launches} "
+                   f"match launches): wall {wall_ms:.1f} ms "
                    f"({wall_ms / CHUNK:.2f} ms a frame), device busy {busy_ms:.2f} ms "
                    f"({100 * busy_ms / wall_ms:.2f} %), {len(dev)} device kernels+copies, "
                    f"{n_launch} cudaLaunchKernel calls ({launch_host_ms:.1f} ms of host time); "
@@ -717,12 +800,149 @@ def profile_chunked(frames, imu, cam):
     return rec
 
 
+# ------------------------------------------------------------------ loop
+def loop_config(cam, loop_closure: bool = True):
+    """The accuracy benchmark's full-resolution configuration for
+    LOOP_FRAMES frames (benchmark_config(full_res=True, frames) of the JAX
+    package's eval/accuracy_benchmark.py), mapping and detection off."""
+    from aria_slam_tpu_torch.config import (
+        LoopClosureConfig, OrbConfig, PipelineConfig, PoseGraphConfig, RansacConfig,
+    )
+
+    return PipelineConfig(
+        camera=cam, orb=OrbConfig(), ransac=RansacConfig(num_hypotheses=256),
+        loop=LoopClosureConfig(max_keyframes=512, min_frames_between=150, min_score=0.3,
+                               min_matches=40),
+        pose_graph=PoseGraphConfig(max_nodes=max(256, LOOP_FRAMES + 16),
+                                   max_edges=max(1024, 3 * LOOP_FRAMES),
+                                   lm_iterations=5, cg_iterations=32),
+        vo_backbone_scale=True, enable_loop_closure=loop_closure, enable_mapping=False,
+        enable_detection=False)
+
+
+def run_loop(frames, gt, imu, cam):
+    """The loop phase. Returns the launch counts, the record, and the
+    inputs of the match kernel's last verify launch (on the host)."""
+    from aria_slam_tpu_torch.backend import loop_closure
+    from aria_slam_tpu_torch.eval import chunked, metrics
+    from aria_slam_tpu_torch.ops.cuda import corner_kernel, match_kernel, patch_kernel
+    from aria_slam_tpu_torch.utils.profiling import StageTimer
+
+    kernels = (corner_kernel.corner_rank_maps, patch_kernel.extract_patches_levels,
+               match_kernel.match_top2_batched)
+    stack, ts, gyro_R, gyro_ok = chunked_inputs(frames, imu)
+    timer = StageTimer(device="cuda")
+    slam = chunked.ChunkedSlam(loop_config(cam), chunk=CHUNK, seed=0, timer=timer)
+    # the match kernel's launches inside lc_query and verify_batch, read
+    # from its counter around each call, and the verify batch's inputs,
+    # copied into pinned host buffers on the stream (no wait, and no
+    # device memory held, so the peak stays the run's own)
+    match_launches = {"query": 0, "verify": 0}
+    vm, nf = max(chunked.VERIFY_MAX, CHUNK), slam.cfg.orb.num_features
+    verify_args = [torch.empty((vm, nf, 256), dtype=torch.int8, pin_memory=True),
+                   torch.empty((vm, nf, 256), dtype=torch.int8, pin_memory=True),
+                   torch.empty((vm, nf), dtype=torch.bool, pin_memory=True)]
+
+    def counted(fn, role):
+        def call(*a, **kw):
+            before = match_kernel.match_top2_batched.launches
+            out = fn(*a, **kw)
+            match_launches[role] += match_kernel.match_top2_batched.launches - before
+            return out
+        return call
+
+    wrapper = loop_closure.match_top2_batched
+
+    def recorded(*a):
+        out = wrapper(*a)
+        for host, x in zip(verify_args, a):
+            host.copy_(x, non_blocking=True)
+        return out
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2**20
+    for k in kernels:
+        k.launches = 0
+    chunk_ms = []
+    with contextlib.ExitStack() as patches:
+        for mod, name, fn in ((chunked, "lc_query", counted(chunked.lc_query, "query")),
+                              (chunked, "verify_batch", counted(chunked.verify_batch, "verify")),
+                              (loop_closure, "match_top2_batched", recorded)):
+            patches.enter_context(mock.patch.object(mod, name, fn))
+        for k in range(LOOP_CHUNKS):
+            t0 = time.perf_counter()
+            feed_chunk(slam, k, stack, ts, gyro_R, gyro_ok, imu)
+            torch.cuda.synchronize()
+            chunk_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = {k.__name__: k.launches for k in kernels}
+    t0 = time.perf_counter()
+    slam.finalize()
+    torch.cuda.synchronize()
+    fin_ms = (time.perf_counter() - t0) * 1e3
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    stages = timer.summary()
+    n_verified = stages.get("loop_verify", {}).get("count", 0)
+
+    est = np.stack([T[:3, 3] for _, T in slam.trajectory])
+    ate = metrics.ate_rmse(est, gt)
+    pairs = slam.loop_pairs
+    true = [(i, j) for i, j in pairs if np.linalg.norm(gt[i] - gt[j]) < LOOP_TRUE_M]
+    precision = len(true) / max(len(pairs), 1)
+
+    # the same frames with loop closure off: the no-harm reference
+    off = chunked.ChunkedSlam(loop_config(cam, loop_closure=False), chunk=CHUNK, seed=0)
+    for k in range(LOOP_CHUNKS):
+        feed_chunk(off, k, stack, ts, gyro_R, gyro_ok, imu)
+    off.finalize()
+    ate_off = metrics.ate_rmse(np.stack([T[:3, 3] for _, T in off.trajectory]), gt)
+
+    steady_ms = float(np.mean(chunk_ms[1:]))
+    log("loop", f"{len(frames)} frames {cam.width}x{cam.height} (rotloop, {LOOP_PERIOD:g} s "
+                f"period) in {LOOP_CHUNKS} chunks of {CHUNK}, loop closure on: chunk ms "
+                f"{', '.join(f'{m:.1f}' for m in chunk_ms)} (first apart); steady "
+                f"{steady_ms:.1f} ms a chunk, {steady_ms / CHUNK:.2f} ms a frame; stages, steady "
+                "mean ms (first) x count: "
+                + "; ".join(f"{n} {v['mean_ms']:.1f} ({v['warm_ms']:.1f}) x{v['count']}"
+                            for n, v in sorted(stages.items()))
+                + f"; finalize {fin_ms:.1f} ms; peak memory {peak_mb:.1f} MiB ({base_mb:.1f} MiB "
+                  f"held before); loops {len(pairs)}, {len(true)} true (within {LOOP_TRUE_M} m), "
+                  f"precision {precision:.3f}, frames {sorted({j for _, j in pairs})}; Sim3 ATE "
+                  f"{ate:.4f} m with loop closure, {ate_off:.4f} m without; launches {launches}, "
+                  f"match in lc_query / verify_batch {match_launches} ({n_verified} chunks "
+                  "verified)")
+    # a chunk: the front end's 2 match launches and lc_query's 1; one
+    # verify_batch launch a chunk that verified
+    want = {"corner_rank_maps": LOOP_CHUNKS, "extract_patches_levels": LOOP_CHUNKS,
+            "match_top2_batched": 3 * LOOP_CHUNKS + n_verified}
+    want_match = {"query": LOOP_CHUNKS, "verify": n_verified}
+    if launches != want or match_launches != want_match:
+        raise AssertionError(f"loop launch counts {launches}, match in lc_query / verify_batch "
+                             f"{match_launches}; expected {want}, {want_match}")
+    if not n_verified:
+        raise AssertionError("no chunk verified candidates")
+    if not pairs or precision < 0.9:
+        raise AssertionError(f"loops {pairs}: {len(true)} true, precision {precision:.3f}")
+    if est.shape != gt.shape or not np.isfinite(est).all():
+        raise AssertionError("loop trajectory has a wrong shape or a non-finite pose")
+    if not ate <= 1.15 * ate_off + 0.02:
+        raise AssertionError(f"loop closure harms: ATE {ate} m with, {ate_off} m without")
+    return launches, dict(chunk_ms=chunk_ms, ms_per_frame=steady_ms / CHUNK, stages=stages,
+                          finalize_ms=fin_ms, peak_mib=peak_mb, loops=len(pairs),
+                          true_loops=len(true), precision=precision, loop_pairs=pairs,
+                          ate_m=ate, ate_without_loops_m=ate_off,
+                          match_launches=match_launches), verify_args
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
     ap.add_argument("--profile", action="store_true",
                     help="also profile a few steady frame steps (torch.profiler)")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     # 1. device
     if not torch.cuda.is_available():
@@ -762,26 +982,38 @@ def main() -> int:
     extra.update(patch_extra)
     records = corner_recs + patch_recs + match_recs
 
-    # 4. the online slice, 5. the chunked path: each with the counts set to
-    # 0 just before it and read just after
+    # 4. the online slice, 5. the chunked path, 6. loop closure: each with
+    # the counts set to 0 just before it and read just after
     launches = {}
     launches["online"], slice_rec = run_slice(frames[:NUM_FRAMES], gt[:NUM_FRAMES], imu, cam)
     launches["chunked"], chunked_rec = run_chunked(frames, gt, imu, cam)
+    t0 = time.perf_counter()
+    loop_frames, loop_gt, loop_imu = render_frames(cam, LOOP_FRAMES, FPS, "rotloop", LOOP_PERIOD)
+    log("render", f"{LOOP_FRAMES} rotloop frames in {time.perf_counter() - t0:.1f} s")
+    launches["loop"], loop_rec, verify_args = run_loop(loop_frames, loop_gt, loop_imu, cam)
+    records.append(check_verify_match(*(x.to(dev) for x in verify_args)))
+    del verify_args
     for r in records:
-        r["launches"] = launches[r["path"]][r["wrapper"]]
+        r["launches"] = (loop_rec["match_launches"][r["role"]] if r["path"] == "loop"
+                         else launches[r["path"]][r["wrapper"]])
         if r["launches"] < 1:
             raise AssertionError(f"{r['name']} was not launched on the {r['path']} path")
     if args.profile:
         extra["profile"] = profile_slice(frames, imu, cam)
-        extra["profile_chunked"] = profile_chunked(frames, imu, cam)
+        extra["profile_chunked"] = profile_chunked(frames, imu, chunked_config(cam), NUM_CHUNKS,
+                                                   "chunked")
+        extra["profile_loop"] = profile_chunked(loop_frames, loop_imu, loop_config(cam),
+                                                LOOP_CHUNKS, "loop")
 
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"device": name, "nvidia_smi": smi, "kernels": records,
-                       "slice": slice_rec, "chunked": chunked_rec, "build_s": secs,
-                       "ptxas": ptxas, **extra}, f, indent=1)
+                       "slice": slice_rec, "chunked": chunked_rec, "loop": loop_rec,
+                       "build_s": secs, "ptxas": ptxas, "seconds": time.perf_counter() - t_start,
+                       **extra}, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log("done", f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in records]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
