@@ -69,6 +69,10 @@ def quat_mul(a, b):
     )
 
 
+def quat_conj(q):
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+
+
 def quat_rotate(q, v):
     """Rotate vectors (...,3) by unit quaternions (...,4)."""
     qv = q[..., 1:]

@@ -2,9 +2,8 @@
 
 Capacity-padded fixed-shape tensors with validity masks, exactly as the
 JAX package lays them out, so the tests compare like with like and
-convert.py can carry a JAX carry over field for field. `EkfState`,
-`Detections` and `MapState` belong to features the port does not run
-yet (see ROADMAP.md queue 1).
+convert.py can carry a JAX carry over field for field. `Detections`
+belongs to a feature the port does not run yet (see ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -106,6 +105,32 @@ class KeyframeDB(_TensorTree):
     covis: torch.Tensor       # (N, N) bool covisibility between slots
     size: torch.Tensor        # () int32 occupied slots
     head: torch.Tensor        # () int32 next slot to write
+
+
+@dataclasses.dataclass
+class MapState(_TensorTree):
+    """Sparse 3D map padded to `max_points` (mapping/mapper.py)."""
+
+    points: torch.Tensor   # (P, 3) float32 world coordinates
+    colors: torch.Tensor   # (P, 3) float32 in [0, 1]
+    quality: torch.Tensor  # (P,) float32
+    valid: torch.Tensor    # (P,) bool
+    count: torch.Tensor    # () int32 insertion cursor
+
+
+@dataclasses.dataclass
+class EkfState(_TensorTree):
+    """15-state error-state EKF (fusion/ekf.py). P is the error covariance
+    over [dp(3), dv(3), dtheta(3), dba(3), dbg(3)]."""
+
+    pos: torch.Tensor          # (3,)
+    vel: torch.Tensor          # (3,)
+    quat: torch.Tensor         # (4,) (w, x, y, z)
+    ba: torch.Tensor           # (3,) accel bias
+    bg: torch.Tensor           # (3,) gyro bias
+    P: torch.Tensor            # (15, 15)
+    last_imu_t: torch.Tensor   # () float32 seconds from the sequence start
+    initialized: torch.Tensor  # () bool
 
 
 def make_empty_features(capacity: int, bits: int = 256,

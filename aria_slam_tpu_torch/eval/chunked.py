@@ -1,5 +1,5 @@
 """Chunked offline SLAM evaluation (counterpart of the JAX package's
-eval/chunked.py): the odometry path and loop closure.
+eval/chunked.py): the odometry path, loop closure and mapping.
 
 Offline evaluation has the whole sequence on disk, so frames run in
 chunks: one front-end pass extracts C+1 frames, matches the C consecutive
@@ -15,21 +15,27 @@ exact candidate scores of all C frames against the keyframe DB before
 this chunk's insert (`lc_query`, one match kernel launch for the C x 8
 candidate pairs), then one batched verification of the best pairs
 (`verify_batch`, one more launch), loop edges and a pose-graph
-optimisation. Mapping and detection are not ported yet: asking for them
-raises NotImplementedError naming the ROADMAP.md item that will port
-them; `snapshot` / `restore` / `export_map` / `get_map` come with them.
+optimisation. The state commit triangulates the chunk's lag pairs
+(i - lag, i) from the chunk-BA-refined chain into the padded map
+(mapping/mapper.py). `snapshot` / `restore` keep the whole evaluator in
+one npz with the JAX package's key names (`load_state` reads one).
+Detection is not ported yet: asking for it raises NotImplementedError
+naming the ROADMAP.md item that will port it.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 from aria_slam_tpu_torch.backend import chunk_ba, keyframe_db, loop_closure, pose_graph
 from aria_slam_tpu_torch.config import PipelineConfig
-from aria_slam_tpu_torch.core.types import Features, KeyframeDB
+from aria_slam_tpu_torch.core.types import Features, KeyframeDB, MapState, PoseGraph
+from aria_slam_tpu_torch.mapping import export, mapper
 from aria_slam_tpu_torch.ops import epipolar, match as match_ops, orb
 from aria_slam_tpu_torch.ops.undistort import undistort_points
 from aria_slam_tpu_torch.pipeline.slam_pipeline import resolve_device
@@ -56,7 +62,6 @@ BA_PIN_MIN_LANDMARKS = 50.0
 
 # flag -> the ROADMAP.md queue-1 item that ports it
 _UNPORTED = {
-    "enable_mapping": "queue 1 item 5 (mapping/mapper.py)",
     "enable_detection": "queue 1 item 8 (detector)",
 }
 
@@ -310,6 +315,7 @@ class ChunkedSlam:
         self.graph = pose_graph.set_node(self.graph, 0, torch.eye(4, device=self.device))
         self.db = (keyframe_db.init_db(config.loop, config.orb, self.device)
                    if config.enable_loop_closure else None)
+        self.map_state = mapper.init_map(config.mapper, self.device)
         self.T = np.eye(4, dtype=np.float32)
         self.frame_count = 0
         self.num_loops = 0
@@ -500,10 +506,9 @@ class ChunkedSlam:
         with self._st("frontend"):
             # frames go up in their own dtype (uint8 from a reader): the
             # front end casts on the device
-            out = self._frontend(
-                torch.from_numpy(np.ascontiguousarray(frames)).to(dev),
-                torch.from_numpy(np.asarray(gyro_R, np.float32)).to(dev),
-                torch.from_numpy(gyro_ok).to(dev))
+            fr = torch.from_numpy(np.ascontiguousarray(frames)).to(dev)
+            out = self._frontend(fr, torch.from_numpy(np.asarray(gyro_R, np.float32)).to(dev),
+                                 torch.from_numpy(gyro_ok).to(dev))
             # one copy lands every per-pair statistic the host chain reads
             keys = [k for k in _FETCH_KEYS if k in out]
             for k, h in zip(keys, fetch_many([out[k] for k in keys])):
@@ -591,8 +596,8 @@ class ChunkedSlam:
                 query = fetch_many(lc_query(self.db, out["hists"], fids, out["desc"],
                                             out["dvalid"], cfg))
 
-        # ---- post-chunk state commit: the pose-graph chain and the
-        # keyframe-DB insert
+        # ---- post-chunk state commit: the pose-graph chain, the
+        # keyframe-DB insert and the map insert
         chain_rwt = cfg.pose_graph.gyro_rot_weight if gyro_full else 1.0
         with self._st("state_update"):
             poses_dev = torch.from_numpy(poses_np).to(dev)
@@ -603,6 +608,17 @@ class ChunkedSlam:
                 self.db = keyframe_db.add_keyframes_batch(
                     self.db, out["desc"], out["xy"], out["dvalid"], fids, poses_dev)
                 self._db_head = (head_before + c) % cfg.loop.max_keyframes
+            if cfg.enable_mapping:
+                # the lag pairs (i - lag, i) with camera-from-world ends
+                # from the chunk-BA-refined chain and colours from the
+                # later frame of each pair
+                lag = self.lag
+                all_poses = np.concatenate([T_start[None], poses_np], 0)
+                self.map_state = mapper.add_from_matches_batched(
+                    self.map_state, self.K,
+                    torch.from_numpy(np.linalg.inv(all_poses[:c + 1 - lag])).to(dev),
+                    torch.from_numpy(np.linalg.inv(all_poses[lag:])).to(dev),
+                    out["uvl_prev"], out["uvl_cur"], out["lvalid"], fr[lag:], cfg.mapper)
 
         # ---- wide-baseline backbone (node i-lag -> node i)
         if "Rl" in out:
@@ -784,6 +800,7 @@ class ChunkedSlam:
             pose = self.db.pose.clone()
             pose[:, :3, 3] *= ratio
             self.db = self.db.replace(pose=pose)
+        self.map_state = self.map_state.replace(points=self.map_state.points * ratio)
         self.T = self.T.copy()
         self.T[:3, 3] *= ratio
         traj = []
@@ -802,3 +819,130 @@ class ChunkedSlam:
         n = len(self.trajectory)
         poses = g.node_pose[:n].cpu().numpy()
         self.trajectory = [(ts, poses[i]) for i, (ts, _) in enumerate(self.trajectory)]
+
+    def get_map(self) -> MapState:
+        return mapper.filter_outliers(self.map_state, self.cfg.mapper.outlier_sigma)
+
+    def export_map(self, ply_path: Optional[str] = None,
+                   pcd_path: Optional[str] = None) -> int:
+        return export.export_map(self.get_map(), ply_path, pcd_path)
+
+    def snapshot(self, path: str) -> None:
+        """The evaluator's whole state in one npz, under the JAX package's
+        key names (`load_state` reads it back): the pose graph, the
+        keyframe DB (when loop closure is on) and the map as
+        `<tree>.<field>`, the scale carry, the host scalars, the
+        trajectory so far and the IMU scale estimator's window. The torch
+        generator's state goes under `torch_rng`; the file has no JAX
+        `rng` key, so the JAX package cannot restore it."""
+        arrays = {}
+        for name in _SNAP_TREES:
+            obj = getattr(self, name)
+            if obj is None:
+                continue
+            for f in dataclasses.fields(obj):
+                arrays[f"{name}.{f.name}"] = getattr(obj, f.name).cpu().numpy()
+        arrays["zlast"] = self._zlast.cpu().numpy()
+        arrays["mlast"] = self._mlast.cpu().numpy()
+        gen = getattr(self._sampler, "generator", None)
+        if gen is not None:
+            arrays["torch_rng"] = gen.get_state().numpy()
+        arrays["T"] = self.T
+        arrays["counters"] = np.array([self.frame_count, self.num_loops, self._db_head],
+                                      np.int64)
+        arrays["scales"] = np.array([self._scale, self._imu_corr, self._vis_corr,
+                                     self._ba_corr, self._vis_local], np.float64)
+        arrays["traj_ts"] = np.array([t for t, _ in self.trajectory], np.float64)
+        arrays["traj_T"] = (np.stack([T for _, T in self.trajectory]) if self.trajectory
+                            else np.zeros((0, 4, 4), np.float32))
+        est = self._scale_est
+        if est is not None:
+            arrays["est_state"] = np.array(
+                [est._corr, float(est._n_good), 1.0 if est._last_p is not None else 0.0],
+                np.float64)
+            arrays["est_last_p"] = est._last_p if est._last_p is not None else np.zeros(3)
+            arrays["est_ts"] = np.asarray(est._ts, np.float64)
+            arrays["est_inc"] = np.stack(est._inc) if est._inc else np.zeros((0, 3))
+            arrays["est_tag"] = np.asarray(est._tag, np.float64)
+            arrays["est_rwb"] = np.stack(est._Rwb) if est._Rwb else np.zeros((0, 3, 3))
+            arrays["est_hist"] = (np.asarray(est._hist, np.float64) if est._hist
+                                  else np.zeros((0, 2)))
+        np.savez_compressed(path, **arrays)
+
+    def restore(self, path: str) -> None:
+        """Restore a snapshot (this port's or the JAX package's) into this
+        evaluator; the configuration must be the one it was taken with."""
+        with np.load(path) as data:
+            load_state(self, data)
+
+
+# device trees of the state file, under these attribute names
+_SNAP_TREES = {"graph": PoseGraph, "db": KeyframeDB, "map_state": MapState}
+
+
+def _tensor(x, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(x)).to(device)
+
+
+def load_state(slam: ChunkedSlam, data) -> None:
+    """Set `slam`'s state from the arrays of a state file: `data` maps the
+    key names of `ChunkedSlam.snapshot` (the JAX package's) to numpy
+    arrays, e.g. an `np.load` of the file.
+
+    Older layouts load as the JAX package's `restore` loads them: two
+    counters (the DB head mirror 0), two to four scales (the rest 1.0),
+    no `est_hist`, a tree field missing from the file (a DB without
+    `covis`) keeping its fresh value, and the positional `<tree>_<i>`
+    layout while its leaf count matches. A tree the evaluator does not
+    hold (the DB with loop closure off) is not read. A JAX file's `rng`
+    is a JAX key that torch cannot continue: the evaluator keeps drawing
+    from its own generator, as seeded, unless the file has `torch_rng`."""
+    from aria_slam_tpu_torch.fusion.vi_init import ScaleEstimator
+
+    dev = slam.device
+    for name, cls in _SNAP_TREES.items():
+        tmpl = getattr(slam, name)
+        if tmpl is None:
+            continue
+        fields = [f.name for f in dataclasses.fields(cls)]
+        if f"{name}.{fields[0]}" in data:
+            setattr(slam, name, tmpl.replace(**{
+                f: _tensor(data[f"{name}.{f}"], dev) for f in fields if f"{name}.{f}" in data}))
+        else:
+            try:
+                leaves = [_tensor(data[f"{name}_{i}"], dev) for i in range(len(fields))]
+            except KeyError as e:
+                raise ValueError(
+                    f"the state file uses the positional layout and the {name} state has "
+                    f"since gained fields; re-create it with this version") from e
+            setattr(slam, name, cls(*leaves))
+    slam._zlast = _tensor(data["zlast"], dev)
+    slam._mlast = _tensor(data["mlast"], dev)
+    gen = getattr(slam._sampler, "generator", None)
+    if gen is not None and "torch_rng" in data:
+        gen.set_state(torch.from_numpy(np.array(data["torch_rng"])))
+    slam.T = np.array(data["T"])
+    counters, scales = np.asarray(data["counters"]), np.asarray(data["scales"])
+    slam.frame_count = int(counters[0])
+    slam.num_loops = int(counters[1])
+    slam._db_head = int(counters[2]) if counters.shape[0] > 2 else 0
+    slam._scale = float(scales[0])
+    slam._imu_corr = float(scales[1])
+    slam._vis_corr, slam._ba_corr, slam._vis_local = (
+        float(scales[i]) if scales.shape[0] > i else 1.0 for i in (2, 3, 4))
+    slam.trajectory = [(float(t), np.array(T)) for t, T in zip(data["traj_ts"], data["traj_T"])]
+    slam._scale_est = None
+    if "est_state" in data:
+        est = ScaleEstimator(R_cam_imu=np.asarray(slam.cfg.imu_cam_rotation, np.float64),
+                             device=dev)
+        st = np.asarray(data["est_state"])
+        est._corr = float(st[0])
+        est._n_good = int(st[1])
+        est._last_p = np.array(data["est_last_p"]) if st[2] > 0 else None
+        est._ts = list(np.asarray(data["est_ts"]))
+        est._inc = list(np.asarray(data["est_inc"]))
+        est._tag = list(np.asarray(data["est_tag"]))
+        est._Rwb = list(np.asarray(data["est_rwb"]))
+        if "est_hist" in data:
+            est._hist = [(float(a), float(b)) for a, b in np.asarray(data["est_hist"])]
+        slam._scale_est = est

@@ -1,16 +1,19 @@
-"""Synthetic scene renderer (the port's numpy copy of the JAX package's
-io/synthetic_scene.py: texture, trajectory, multi-depth scene layers,
-frame rendering, and the IMU samples derived from the trajectory).
+"""Synthetic scene renderer and ASL dataset writer (the port's numpy copy
+of the JAX package's io/synthetic_scene.py: texture, trajectory,
+multi-depth scene layers, frame rendering, the IMU samples derived from
+the trajectory, and `generate`).
 
 The reference warps textures with cv2.warpPerspective; this copy does
 the same inverse-homography warp in numpy (source coordinates quantised
 to 1/32 px and bilinear sampling with a zero border, as OpenCV does, and
 a nearest-neighbour coverage mask), so frames can be made where OpenCV
 is not installed. Frames agree with the reference's to about one grey
-level.
+level. `generate` writes its PNGs with zlib (io/euroc.py).
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -193,3 +196,138 @@ def imu_samples(duration: float, imu_hz: float = 200.0, seed: int = 0,
     f_body = f_body + rng.normal(0, 0.01, f_body.shape)
     gyro = gyro + rng.normal(0, 0.001, gyro.shape)
     return ti, f_body, gyro
+
+
+def _mat_to_quat_f32(R: np.ndarray) -> np.ndarray:
+    """(N, 3, 3) float32 rotations -> (N, 4) (w, x, y, z) unit quaternions,
+    w >= 0: core/lie.mat_to_quat's Shepperd construction in float32 numpy,
+    whose square root is correctly rounded (torch's float32 sqrt on the
+    CPU is not always), so the ground-truth file matches the reference's
+    digit for digit."""
+    f = np.float32
+    m = [[R[:, i, j] for j in range(3)] for i in range(3)]
+    tr = m[0][0] + m[1][1] + m[2][2]
+
+    def part(x):
+        q = np.sqrt(np.maximum(x, f(1e-24))) / f(2.0)
+        return q, np.maximum(f(4.0) * q, f(1e-8))
+
+    qw0, s0 = part(f(1.0) + tr)
+    c0 = [qw0, (m[2][1] - m[1][2]) / s0, (m[0][2] - m[2][0]) / s0, (m[1][0] - m[0][1]) / s0]
+    qx1, s1 = part(f(1.0) + m[0][0] - m[1][1] - m[2][2])
+    c1 = [(m[2][1] - m[1][2]) / s1, qx1, (m[0][1] + m[1][0]) / s1, (m[0][2] + m[2][0]) / s1]
+    qy2, s2 = part(f(1.0) - m[0][0] + m[1][1] - m[2][2])
+    c2 = [(m[0][2] - m[2][0]) / s2, (m[0][1] + m[1][0]) / s2, qy2, (m[1][2] + m[2][1]) / s2]
+    qz3, s3 = part(f(1.0) - m[0][0] - m[1][1] + m[2][2])
+    c3 = [(m[1][0] - m[0][1]) / s3, (m[0][2] + m[2][0]) / s3, (m[1][2] + m[2][1]) / s3, qz3]
+    cond1 = (m[0][0] > m[1][1]) & (m[0][0] > m[2][2])
+    cond2 = m[1][1] > m[2][2]
+    q = np.where((tr > 0)[:, None], np.stack(c0, -1),
+                 np.where(cond1[:, None], np.stack(c1, -1),
+                          np.where(cond2[:, None], np.stack(c2, -1), np.stack(c3, -1))))
+    q = np.where(q[:, :1] < 0, -q, q)
+    # the norm as the reference's compiled one sums it: a chain of fused
+    # multiply-adds (exact float64 products, one rounding to float32 a step)
+    ss = q[:, 0] * q[:, 0]
+    for k in (1, 2, 3):
+        ss = (q[:, k].astype(np.float64) ** 2 + ss).astype(f)
+    return q / np.maximum(np.sqrt(ss), f(1e-8))[:, None]
+
+
+def generate(
+    out_dir: str,
+    num_frames: int = 60,
+    fps: float = 10.0,
+    imu_hz: float = 200.0,
+    cam: CameraConfig | None = None,
+    seed: int = 0,
+    depth: float = 4.0,
+    traj: str = "sweep",
+    occluder: bool = False,
+    period: float = 20.0,
+    structure: str = "layers",
+    moving_object: bool = False,
+    object_size: float = 0.9,
+    object_speed: float = 1.0,
+    noise_std: float = 0.0,
+    exposure_drift: float = 0.0,
+    motion_blur: int = 0,
+) -> str:
+    """Write an ASL dataset under out_dir/mav0 (cam0 PNGs, data.csv and
+    sensor.yaml, imu0 with the reference generator's noise, ground truth
+    at the IMU rate). Returns out_dir.
+
+    traj: "sweep" | "rotloop" (see trajectory()); period: the revisit
+    period in seconds; structure: "layers" (the multi-depth scene) or
+    "plane" (a single plane, a degeneracy stress test); exposure_drift:
+    sinusoidal gain amplitude over the period. The occluder, the moving
+    object, sensor noise and motion blur are not ported yet and raise."""
+    from aria_slam_tpu_torch.io.euroc import encode_png_gray8
+
+    unported = {"occluder": (occluder, "queue 1 item 11"),
+                "moving_object": (moving_object, "queue 1 item 8"),
+                "noise_std": (noise_std > 0.0, "queue 1 item 11"),
+                "motion_blur": (motion_blur > 1, "queue 1 item 11")}
+    for name, (asked, item) in unported.items():
+        if asked:
+            raise NotImplementedError(
+                f"generate({name}=...) is not ported to aria_slam_tpu_torch yet; "
+                f"see ROADMAP.md {item} (io/synthetic_scene.py stressors)")
+
+    cam = cam or CameraConfig(k1=0.0, k2=0.0, p1=0.0, p2=0.0)  # no distortion
+    tex = _texture(seed=seed) if structure != "layers" else None
+    layers = scene_layers(depth, seed) if structure == "layers" else None
+    mav = os.path.join(out_dir, "mav0")
+    cam_data = os.path.join(mav, "cam0", "data")
+    os.makedirs(cam_data, exist_ok=True)
+    os.makedirs(os.path.join(mav, "imu0"), exist_ok=True)
+    os.makedirs(os.path.join(mav, "state_groundtruth_estimate0"), exist_ok=True)
+
+    t0_ns = 1_400_000_000_000_000_000  # EuRoC-style epoch ns
+
+    cam_rows = []
+    for k in range(num_frames):
+        t = k / fps
+        pos, R = trajectory(t, depth=depth, kind=traj, period=period)
+        img = render_frame(cam, tex, pos, R, depth=depth, layers=layers)
+        if exposure_drift > 0.0:
+            gain = 1.0 + exposure_drift * np.sin(2 * np.pi * t / period)
+            img = np.clip(img.astype(np.float32) * gain, 0, 255)
+        ts_ns = t0_ns + int(round(t * 1e9))
+        fname = f"{ts_ns}.png"
+        with open(os.path.join(cam_data, fname), "wb") as f:
+            f.write(encode_png_gray8(img.astype(np.uint8)))
+        cam_rows.append(f"{ts_ns},{fname}")
+    with open(os.path.join(mav, "cam0", "data.csv"), "w") as f:
+        f.write("#timestamp [ns],filename\n")
+        f.write("\n".join(cam_rows) + "\n")
+
+    with open(os.path.join(mav, "cam0", "sensor.yaml"), "w") as f:
+        f.write(
+            "sensor_type: camera\n"
+            f"resolution: [{cam.width}, {cam.height}]\n"
+            "camera_model: pinhole\n"
+            f"intrinsics: [{cam.fx}, {cam.fy}, {cam.cx}, {cam.cy}]\n"
+            "distortion_model: radial-tangential\n"
+            f"distortion_coefficients: [{cam.k1}, {cam.k2}, {cam.p1}, {cam.p2}]\n"
+        )
+
+    ti, f_body, gyro = imu_samples(num_frames / fps, imu_hz, seed, depth, traj, period)
+    with open(os.path.join(mav, "imu0", "data.csv"), "w") as f:
+        f.write("#timestamp [ns],w_x,w_y,w_z,a_x,a_y,a_z\n")
+        for k in range(len(ti)):
+            ts_ns = t0_ns + int(round(ti[k] * 1e9))
+            f.write(f"{ts_ns},{gyro[k,0]:.9f},{gyro[k,1]:.9f},{gyro[k,2]:.9f},"
+                    f"{f_body[k,0]:.9f},{f_body[k,1]:.9f},{f_body[k,2]:.9f}\n")
+
+    # ground truth at the IMU rate
+    pos_c, R_c = trajectory(ti, depth=depth, kind=traj, period=period)
+    quats = _mat_to_quat_f32(R_c.astype(np.float32))
+    with open(os.path.join(mav, "state_groundtruth_estimate0", "data.csv"), "w") as f:
+        f.write("#timestamp, p_x, p_y, p_z, q_w, q_x, q_y, q_z\n")
+        for k in range(len(ti)):
+            ts_ns = t0_ns + int(round(ti[k] * 1e9))
+            p, q = pos_c[k], quats[k]
+            f.write(f"{ts_ns},{p[0]:.9f},{p[1]:.9f},{p[2]:.9f},"
+                    f"{q[0]:.9f},{q[1]:.9f},{q[2]:.9f},{q[3]:.9f}\n")
+    return out_dir

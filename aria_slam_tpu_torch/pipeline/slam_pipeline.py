@@ -6,9 +6,10 @@ frame, gyro-fused essential RANSAC, the monocular scale pin or
 propagation, pose accumulation, and a pose-graph node + odometry edge;
 `finalize` runs the final pose-graph optimisation. The step runs eagerly
 on one device; everything between the uploaded image and the pose stays
-there. EKF fusion, loop closure, mapping, detection, dynamic filtering
-and the pipelined (lazy) mode are not ported yet: asking for them
-raises NotImplementedError naming the ROADMAP item that will port them.
+there. The online EKF fusion, loop closure and mapping, detection,
+dynamic filtering and the pipelined (lazy) mode are not ported yet:
+asking for them raises NotImplementedError naming the ROADMAP item that
+will port them.
 """
 
 from __future__ import annotations
@@ -28,10 +29,11 @@ from aria_slam_tpu_torch.ops.undistort import undistort_points
 
 # flag -> the ROADMAP.md queue-1 item that ports it
 _UNPORTED = {
-    "enable_fusion": "queue 1 item 7 (fusion/ekf.py)",
+    "enable_fusion": ("queue 1 item 10 (the online EKF: ekf.frame_step, predict, update "
+                      "and pose_covariance)"),
     "enable_loop_closure": ("queue 1 item 10 (the online loop closure: loop_closure.detect, "
                             "keyframe_db.add_keyframe and the online branch)"),
-    "enable_mapping": "queue 1 item 5 (mapping/mapper.py)",
+    "enable_mapping": "queue 1 item 10 (the online mapping: mapper.add_from_matches in the step)",
     "enable_detection": "queue 1 item 8 (detector)",
     "enable_dynamic_filtering": "queue 1 item 8 (detector)",
 }
@@ -237,6 +239,7 @@ class SlamPipeline:
         self.on_pose: Optional[Callable] = None
         self.trajectory: list = []  # (ts, 4x4 pose) after each frame
         self.last_output: StepOutput | None = None
+        self.num_loops = 0  # the online loop closure is not ported (check_supported)
 
     # parity: processIMU(ImuMeasurement)
     def process_imu(self, timestamp: float, accel, gyro) -> None:
@@ -279,6 +282,15 @@ class SlamPipeline:
         if self.on_pose is not None:
             self.on_pose(timestamp, pose)
         return pose
+
+    def export_map(self, ply_path: Optional[str] = None,
+                   pcd_path: Optional[str] = None) -> int:
+        """The online step builds no map yet (enable_mapping raises): the
+        files are written with no point."""
+        from aria_slam_tpu_torch.mapping import export, mapper
+
+        empty = mapper.init_map(dataclasses.replace(self.config.mapper, max_points=0), "cpu")
+        return export.export_map(empty, ply_path, pcd_path)
 
     # final global optimisation (parity: optimize(50) at the end)
     def finalize(self) -> None:

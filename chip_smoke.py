@@ -49,14 +49,16 @@ Phases, one line each; any failure raises and exits non-zero:
               one steady chunk and the device's busy share.
 6. loop    -- the accuracy benchmark's full-resolution configuration
               (benchmark_config(full_res=True) of the JAX package's
-              eval/accuracy_benchmark.py: loop gates 150 / 0.3 / 40, 512
-              keyframes, vo_backbone_scale) with loop closure on: 257
+              eval/accuracy_benchmark.py as it is: loop gates 150 / 0.3 /
+              40, 512 keyframes, vo_backbone_scale, mapping into a
+              100,000-point map) with loop closure on: 257
               rendered frames of the rotloop trajectory (20 s period, 10
               fps, so frames 200-256 revisit frames 0-56) in 8 chunks of
               32 with the IMU stream and gyro priors, then the same run
               with loop closure off. Prints ms a chunk and a frame, the
               StageTimer stages (loop_query / loop_verify / loop_optimize
-              among them), finalize ms, peak memory, the loops found, their
+              among them, state_update with the map insert), finalize ms,
+              the map's point count, peak memory, the loops found, their
               precision against the rendered ground truth (true when the
               two frames lie within 0.5 m) and both Sim3 ATEs; checks the
               launch counts (corner 8, patch 8, match 3 x 8 plus one a
@@ -67,6 +69,33 @@ Phases, one line each; any failure raises and exits non-zero:
               0.02 m. Then the match kernel on the last verify batch's own
               inputs against its plain version (bit-exact) and timed there.
               With --profile also one steady chunk that verifies.
+7. eval    -- the evaluator's own entry point: the port's
+              io/synthetic_scene.generate writes the same 257-frame
+              rotloop as an ASL directory (PNGs, IMU, ground truth) and
+              eval/euroc_eval.run reads it at chunk 32 in the accuracy
+              benchmark's three variants, vo / vio / vio_lc, each with the
+              kernels' counts set to 0 just before it. Prints every ATE
+              flavour (Sim3, rigid, raw, the fused ones), the Umeyama
+              scale, loops and their precision, map points, steady frame
+              ms, fps, every stage with its count (decode on the worker
+              thread, the EKF's forward pass and smoother among them),
+              the generate time, peak memory, and the EKF once more on the
+              device the evaluator does not use for it. vo reads the
+              generator's PNGs (row filter 0: the decoder's flat path);
+              then every frame is rewritten with each row's filter chosen
+              as libpng chooses it (Average and Paeth rows, as real EuRoC
+              files have: the decoder's anti-diagonal walk), and vio and
+              vio_lc read those. One chunk's decode is also timed alone in
+              both encodings (in this process and split over the
+              evaluator's decode processes), and each variant prints its
+              decode ms a chunk beside its device_chunk ms and the main
+              thread's wait for frames (decode_wait). Fails unless every
+              pose is finite, the launch counts are a run's (corner 8,
+              patch 8, match 16, or 24 plus one a verifying chunk with loop
+              closure), vio_lc finds a loop at precision >= 0.9 and its ATE
+              is <= 1.15 x vio's + 0.02 m, each fused track's Sim3 and raw
+              ATE are within 1e-3 m of its chain's or below, and map.ply
+              holds map_points points.
 
 The line before the last holds the card's name and power limit as
 nvidia-smi reports them, the one before it the kernels' JSON record (each
@@ -801,23 +830,25 @@ def profile_chunked(frames, imu, cfg, nchunks: int, label: str):
 
 
 # ------------------------------------------------------------------ loop
-def loop_config(cam, loop_closure: bool = True):
+def benchmark_config(cam, loop_closure: bool = True):
     """The accuracy benchmark's full-resolution configuration for
     LOOP_FRAMES frames (benchmark_config(full_res=True, frames) of the JAX
-    package's eval/accuracy_benchmark.py), mapping and detection off."""
+    package's eval/accuracy_benchmark.py, as it is: mapping into a
+    100,000-point map, fusion on for euroc_eval), loop closure on or off."""
     from aria_slam_tpu_torch.config import (
-        LoopClosureConfig, OrbConfig, PipelineConfig, PoseGraphConfig, RansacConfig,
+        LoopClosureConfig, MapperConfig, OrbConfig, PipelineConfig, PoseGraphConfig,
+        RansacConfig,
     )
 
     return PipelineConfig(
         camera=cam, orb=OrbConfig(), ransac=RansacConfig(num_hypotheses=256),
         loop=LoopClosureConfig(max_keyframes=512, min_frames_between=150, min_score=0.3,
                                min_matches=40),
+        mapper=MapperConfig(max_points=100_000),
         pose_graph=PoseGraphConfig(max_nodes=max(256, LOOP_FRAMES + 16),
                                    max_edges=max(1024, 3 * LOOP_FRAMES),
                                    lm_iterations=5, cg_iterations=32),
-        vo_backbone_scale=True, enable_loop_closure=loop_closure, enable_mapping=False,
-        enable_detection=False)
+        vo_backbone_scale=True, enable_loop_closure=loop_closure)
 
 
 def run_loop(frames, gt, imu, cam):
@@ -832,7 +863,7 @@ def run_loop(frames, gt, imu, cam):
                match_kernel.match_top2_batched)
     stack, ts, gyro_R, gyro_ok = chunked_inputs(frames, imu)
     timer = StageTimer(device="cuda")
-    slam = chunked.ChunkedSlam(loop_config(cam), chunk=CHUNK, seed=0, timer=timer)
+    slam = chunked.ChunkedSlam(benchmark_config(cam), chunk=CHUNK, seed=0, timer=timer)
     # the match kernel's launches inside lc_query and verify_batch, read
     # from its counter around each call, and the verify batch's inputs,
     # copied into pinned host buffers on the stream (no wait, and no
@@ -885,6 +916,7 @@ def run_loop(frames, gt, imu, cam):
     peak_mb = torch.cuda.max_memory_allocated() / 2**20
     stages = timer.summary()
     n_verified = stages.get("loop_verify", {}).get("count", 0)
+    map_count, map_live = int(slam.map_state.count), int(slam.get_map().valid.sum())
 
     est = np.stack([T[:3, 3] for _, T in slam.trajectory])
     ate = metrics.ate_rmse(est, gt)
@@ -893,7 +925,7 @@ def run_loop(frames, gt, imu, cam):
     precision = len(true) / max(len(pairs), 1)
 
     # the same frames with loop closure off: the no-harm reference
-    off = chunked.ChunkedSlam(loop_config(cam, loop_closure=False), chunk=CHUNK, seed=0)
+    off = chunked.ChunkedSlam(benchmark_config(cam, loop_closure=False), chunk=CHUNK, seed=0)
     for k in range(LOOP_CHUNKS):
         feed_chunk(off, k, stack, ts, gyro_R, gyro_ok, imu)
     off.finalize()
@@ -907,8 +939,10 @@ def run_loop(frames, gt, imu, cam):
                 "mean ms (first) x count: "
                 + "; ".join(f"{n} {v['mean_ms']:.1f} ({v['warm_ms']:.1f}) x{v['count']}"
                             for n, v in sorted(stages.items()))
-                + f"; finalize {fin_ms:.1f} ms; peak memory {peak_mb:.1f} MiB ({base_mb:.1f} MiB "
-                  f"held before); loops {len(pairs)}, {len(true)} true (within {LOOP_TRUE_M} m), "
+                + f"; finalize {fin_ms:.1f} ms; state_update (with the map insert) "
+                  f"{stages['state_update']['mean_ms']:.2f} ms; map {map_count} points inserted, "
+                  f"{map_live} after the outlier filter; peak memory {peak_mb:.1f} MiB (1716.7 "
+                  f"MiB before the map was ported; {base_mb:.1f} MiB held before); loops {len(pairs)}, {len(true)} true (within {LOOP_TRUE_M} m), "
                   f"precision {precision:.3f}, frames {sorted({j for _, j in pairs})}; Sim3 ATE "
                   f"{ate:.4f} m with loop closure, {ate_off:.4f} m without; launches {launches}, "
                   f"match in lc_query / verify_batch {match_launches} ({n_verified} chunks "
@@ -929,11 +963,194 @@ def run_loop(frames, gt, imu, cam):
         raise AssertionError("loop trajectory has a wrong shape or a non-finite pose")
     if not ate <= 1.15 * ate_off + 0.02:
         raise AssertionError(f"loop closure harms: ATE {ate} m with, {ate_off} m without")
+    if not 0 < map_live <= map_count:
+        raise AssertionError(f"map of {map_count} points, {map_live} live")
     return launches, dict(chunk_ms=chunk_ms, ms_per_frame=steady_ms / CHUNK, stages=stages,
                           finalize_ms=fin_ms, peak_mib=peak_mb, loops=len(pairs),
+                          map_points=map_count, map_live=map_live,
                           true_loops=len(true), precision=precision, loop_pairs=pairs,
                           ate_m=ate, ate_without_loops_m=ate_off,
                           match_launches=match_launches), verify_args
+
+
+# ------------------------------------------------------------------ eval
+def _ply_points(path: str) -> int:
+    with open(path) as f:
+        lines = f.read().splitlines()
+    return len(lines) - lines.index("end_header") - 1
+
+
+def decode_chunk_ms(paths) -> dict:
+    """One chunk's PNGs (CHUNK + 1) decoded alone, in this process and as
+    the evaluator's worker decodes them (split over its child
+    processes): the median of 3 each, ms."""
+    from aria_slam_tpu_torch.eval import euroc_eval
+    from aria_slam_tpu_torch.io import euroc
+
+    out = {}
+    with euroc.DecodeProcesses(euroc_eval.DECODE_PROCESSES) as children:
+        for name, fn in (("in this process", euroc.load_images_safe),
+                         (f"in {euroc_eval.DECODE_PROCESSES} children", children)):
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                imgs = fn(paths[:CHUNK + 1])
+                times.append((time.perf_counter() - t0) * 1e3)
+                if any(img is None for img in imgs):
+                    raise AssertionError("a generated frame does not decode")
+            out[name] = float(np.median(times))
+    return out
+
+
+def adaptive_pngs(paths):
+    """Rewrite every frame with libpng's choice of row filter; -> (one
+    chunk's decode alone as decode_chunk_ms times it, rows of each filter
+    type 0-4, seconds)."""
+    from aria_slam_tpu_torch.io import euroc
+
+    t0 = time.perf_counter()
+    filters = np.zeros(5, np.int64)
+    for path in paths:
+        img = euroc.load_image(path)
+        data = euroc.encode_png_gray8(img, adaptive=True)
+        filters += np.bincount(euroc.inflate_png(data)[1], minlength=5)
+        with open(path, "wb") as f:
+            f.write(data)
+    enc_s = time.perf_counter() - t0
+    ms = decode_chunk_ms(paths)
+    if not np.array_equal(euroc.load_image(paths[-1]), img):
+        raise AssertionError("a rewritten frame decodes to other pixels")
+    return ms, filters.tolist(), enc_s
+
+
+def run_eval(cam):
+    """The eval phase: the port's generate() writes the full-resolution
+    rotloop (LOOP_FRAMES frames, the loop phase's trajectory, 200 Hz IMU)
+    as an ASL directory, and the port's euroc_eval.run reads it at chunk
+    CHUNK in the accuracy benchmark's three variants (vo: fusion and loop
+    closure off; vio: loop closure off; vio_lc: all on). Each variant runs
+    with the kernels' counts set to 0 just before it and read just after.
+    The EKF of vio_lc is timed once more on the other device."""
+    import dataclasses
+    import tempfile
+
+    from aria_slam_tpu_torch.eval import euroc_eval
+    from aria_slam_tpu_torch.fusion import ekf
+    from aria_slam_tpu_torch.io import euroc, synthetic_scene
+    from aria_slam_tpu_torch.ops.cuda import corner_kernel, match_kernel, patch_kernel
+    from aria_slam_tpu_torch.utils.profiling import StageTimer
+
+    kernels = (corner_kernel.corner_rank_maps, patch_kernel.extract_patches_levels,
+               match_kernel.match_top2_batched)
+    cfg = benchmark_config(cam)
+    variants = {"vo": dataclasses.replace(cfg, enable_fusion=False, enable_loop_closure=False),
+                "vio": dataclasses.replace(cfg, enable_loop_closure=False),
+                "vio_lc": cfg}
+    gt = np.stack([synthetic_scene.trajectory(k / FPS, kind="rotloop", period=LOOP_PERIOD)[0]
+                   for k in range(LOOP_FRAMES)])
+    rec, launches = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        scene = f"{tmp}/rotloop"
+        t0 = time.perf_counter()
+        synthetic_scene.generate(scene, num_frames=LOOP_FRAMES, fps=FPS, cam=cam, depth=4.0,
+                                 traj="rotloop", period=LOOP_PERIOD)
+        gen_s = time.perf_counter() - t0
+        log("eval", f"generate(): {LOOP_FRAMES} rotloop frames {cam.width}x{cam.height}, "
+                    f"rendered and written as PNG with the IMU and ground truth, in {gen_s:.1f} s")
+        paths = euroc.load(scene).image_paths
+        decode_alone = {"filter 0": decode_chunk_ms(paths)}
+        for name, vcfg in variants.items():
+            if name == "vio":
+                decode_alone["libpng's filters"], filters, enc_s = adaptive_pngs(paths)
+                log("eval", f"frames rewritten with libpng's row filters in {enc_s:.1f} s; rows "
+                            "None / Sub / Up / Average / Paeth: " + " / ".join(map(str, filters))
+                            + "; one chunk's decode alone (" + str(CHUNK + 1) + " PNGs, median "
+                            "of 3): " + "; ".join(f"{k}: " + ", ".join(
+                                f"{where} {ms:.1f} ms" for where, ms in v.items())
+                                for k, v in decode_alone.items()))
+                if not (filters[3] and filters[4]):
+                    raise AssertionError("the rewritten frames hold no Average or Paeth rows")
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            for k in kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            res = euroc_eval.run(scene, out_dir=f"{tmp}/{name}", config=vcfg, verbose=False,
+                                 chunk=CHUNK, keep_pipe=True)
+            wall_s = time.perf_counter() - t0
+            launches[name] = {k.__name__: k.launches for k in kernels}
+            peak_mb = torch.cuda.max_memory_allocated() / 2**20
+            pipe = res.pop("_pipe")
+            est = np.stack([T[:3, 3] for _, T in pipe.trajectory])
+            pairs = pipe.loop_pairs
+            true = [(i, j) for i, j in pairs if np.linalg.norm(gt[i] - gt[j]) < LOOP_TRUE_M]
+            precision = len(true) / max(len(pairs), 1)
+            ply = _ply_points(f"{tmp}/{name}/map.ply")
+            n_verified = res["stage_n"].get("loop_verify", 0)
+            rec[name] = dict(res, wall_s=wall_s, peak_mib=peak_mb, precision=precision,
+                             true_loops=len(true), ply_points=ply, loop_pairs=pairs)
+            fused = ", ".join(f"{k} {res[k]:.4f}" for k in (
+                "ate_fused_rmse_m", "ate_fused_noscale_rmse_m", "ate_fused_raw_rmse_m") if k in res)
+            log("eval", f"{name}: {res['frames']} frames in {wall_s:.1f} s; ATE Sim3 "
+                        f"{res['ate_rmse_m']:.4f} m, no-scale {res['ate_noscale_rmse_m']:.4f} m, "
+                        f"raw {res['ate_raw_rmse_m']:.4f} m; fused {fused or 'none (fusion off)'}"
+                        f"; umeyama_scale {res['umeyama_scale']:.4f}; rpe_rot "
+                        f"{res['rpe_rot_deg']:.4f} deg; loops {res['loops']} ({len(true)} true, "
+                        f"precision {precision:.3f}); map_points {res['map_points']} (map.ply "
+                        f"{ply}); steady_frame_ms {res['steady_frame_ms']:.2f}; avg_fps "
+                        f"{res['avg_fps']:.2f}; compile_wall_s {res['compile_wall_s']}; peak "
+                        f"memory {peak_mb:.1f} MiB; launches {launches[name]}; decode "
+                        f"{res['stage_ms']['decode']:.1f} ms a chunk on the worker against "
+                        f"device_chunk {res['stage_ms']['device_chunk']:.1f} ms, the main "
+                        f"thread's decode_wait {res['stage_ms']['decode_wait']:.1f} ms a chunk "
+                        f"(first {res['stage_ms_warm']['decode_wait']:.1f} ms); stage_ms (n): "
+                        + "; ".join(f"{k} {v} ({res['stage_n'][k]})"
+                                    for k, v in sorted(res["stage_ms"].items())))
+            want = {"corner_rank_maps": LOOP_CHUNKS, "extract_patches_levels": LOOP_CHUNKS,
+                    "match_top2_batched": (3 * LOOP_CHUNKS + n_verified if vcfg.enable_loop_closure
+                                           else 2 * LOOP_CHUNKS)}
+            if launches[name] != want:
+                raise AssertionError(f"eval {name} launch counts {launches[name]}, expected {want}")
+            if est.shape != gt.shape or not np.isfinite(est).all():
+                raise AssertionError(f"eval {name}: a wrong shape or a non-finite pose")
+            if ply != res["map_points"] or res["map_points"] <= 0:
+                raise AssertionError(f"eval {name}: map.ply holds {ply} points, map_points "
+                                     f"{res['map_points']}")
+            if vcfg.enable_fusion and not (
+                    res["ate_fused_rmse_m"] <= res["ate_rmse_m"] + 1e-3
+                    and res["ate_fused_raw_rmse_m"] <= res["ate_raw_rmse_m"] + 1e-3):
+                raise AssertionError(f"eval {name}: the fused track is worse than the chain")
+        lc = rec["vio_lc"]
+        if not lc["loops"] or lc["precision"] < 0.9:
+            raise AssertionError(f"eval vio_lc: loops {lc['loop_pairs']}, precision "
+                                 f"{lc['precision']:.3f}")
+        if not lc["ate_rmse_m"] <= 1.15 * rec["vio"]["ate_rmse_m"] + 0.02:
+            raise AssertionError(f"eval: loop closure harms, ATE {lc['ate_rmse_m']} m with, "
+                                 f"{rec['vio']['ate_rmse_m']} m without")
+
+        # the EKF once more, on the device the evaluator does not use for it
+        other = "cuda" if euroc_eval.EKF_DEVICE == "cpu" else "cpu"
+        timer = StageTimer(device="cuda")
+        data = euroc.load(scene)
+        fused_other, _ = ekf.run_sequence(*euroc_eval.ekf_inputs(data, pipe.trajectory), cfg.ekf,
+                                          smooth=True, device=other, timer=timer)
+        fused_chosen = euroc_eval.fuse(data, pipe.trajectory, cfg)
+        ekf_other = {k: v["mean_ms"] for k, v in timer.summary().items()}
+        diff = float(np.abs(fused_other.cpu().numpy() - fused_chosen).max())
+    chosen = {k: lc["stage_ms"][k] for k in ("ekf_forward", "ekf_smoother")}
+    n_events = len(data.imu_ts) + LOOP_FRAMES
+    log("eval", f"EKF over about {n_events} events on {euroc_eval.EKF_DEVICE} (the evaluator's "
+                f"choice): forward {chosen['ekf_forward']:.1f} ms, smoother "
+                f"{chosen['ekf_smoother']:.1f} ms; on {other}: forward "
+                f"{ekf_other['ekf_forward']:.1f} ms, smoother {ekf_other['ekf_smoother']:.1f} ms; "
+                f"fused positions of the two routes within {diff:.2e} m. Direction only, TPU: "
+                "PREFETCH_r05.json, 240 frames, vio_lc at chunk 32, 57 loops, Sim3 ATE 0.1795 m")
+    return launches, dict(variants=rec, generate_s=gen_s, decode_alone_ms=decode_alone,
+                          png_row_filters=filters, ekf_chosen_ms=chosen,
+                          ekf_other_device=other, ekf_other_ms=ekf_other,
+                          ekf_route_max_diff_m=diff)
 
 
 def main() -> int:
@@ -993,6 +1210,7 @@ def main() -> int:
     launches["loop"], loop_rec, verify_args = run_loop(loop_frames, loop_gt, loop_imu, cam)
     records.append(check_verify_match(*(x.to(dev) for x in verify_args)))
     del verify_args
+    launches["eval"], eval_rec = run_eval(cam)
     for r in records:
         r["launches"] = (loop_rec["match_launches"][r["role"]] if r["path"] == "loop"
                          else launches[r["path"]][r["wrapper"]])
@@ -1002,13 +1220,14 @@ def main() -> int:
         extra["profile"] = profile_slice(frames, imu, cam)
         extra["profile_chunked"] = profile_chunked(frames, imu, chunked_config(cam), NUM_CHUNKS,
                                                    "chunked")
-        extra["profile_loop"] = profile_chunked(loop_frames, loop_imu, loop_config(cam),
+        extra["profile_loop"] = profile_chunked(loop_frames, loop_imu, benchmark_config(cam),
                                                 LOOP_CHUNKS, "loop")
 
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"device": name, "nvidia_smi": smi, "kernels": records,
                        "slice": slice_rec, "chunked": chunked_rec, "loop": loop_rec,
+                       "eval": eval_rec,
                        "build_s": secs, "ptxas": ptxas, "seconds": time.perf_counter() - t_start,
                        **extra}, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

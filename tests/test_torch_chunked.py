@@ -384,7 +384,7 @@ def test_chunk_from_converted_jax_state(run):
 
 
 # ------------------------------------------------------------ entry point
-@pytest.mark.parametrize("flag", ["enable_mapping", "enable_detection"])
+@pytest.mark.parametrize("flag", ["enable_detection"])
 def test_unported_flags_raise(flag):
     cfg = dataclasses.replace(TCFG, **{flag: True})
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):

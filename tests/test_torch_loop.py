@@ -165,9 +165,9 @@ def run(tmp_path_factory):
                         sampler=JaxChunkChainSampler(jax.random.key(SEED), js.lag))
     js.lc_diag, tslam.lc_diag = [], []
     snap = str(tmp_path_factory.mktemp("snap") / "loop.npz")
-    res = dict(gt=gt, js=js)
     chunks = [(frames[s:s + CHUNK + 1], ts[s:s + CHUNK + 1], Rg[s:s + CHUNK], okg[s:s + CHUNK])
               for s in range(0, NCHUNKS * CHUNK, CHUNK)]
+    res = dict(gt=gt, js=js, chunks=chunks)
     for k, args in enumerate(chunks):
         if k == SNAP_AFTER:
             js.snapshot(snap)
@@ -368,10 +368,43 @@ def test_loops_from_converted_jax_state(run):
     assert run["converted"] == (run["pairs"][0], run["num_loops"][0])
 
 
-@pytest.mark.parametrize("flag", ["enable_mapping", "enable_detection"])
+def test_port_snapshot_with_loops_continues_identically(run, tmp_path):
+    """The main path's state file: loop closure and mapping on, a port
+    ChunkedSlam on its own seeded generator snapshots after SNAP_AFTER
+    chunks (db.* with the covisibility, counters[2] = the ring's head,
+    torch_rng, the map), a fresh one with another seed restores it, and
+    both run the last chunk, which closes loops and wraps the ring: loop
+    pairs, every DB field, the head, the map, the graph and the
+    trajectory come out identical."""
+    cfg = dataclasses.replace(TCFG, enable_mapping=True)
+    a = ChunkedSlam(cfg, chunk=CHUNK, device="cpu", seed=SEED)
+    for args in run["chunks"][:SNAP_AFTER]:
+        a.process_chunk(*args)
+    path = str(tmp_path / "loop.npz")
+    a.snapshot(path)
+    b = ChunkedSlam(cfg, chunk=CHUNK, device="cpu", seed=99)
+    b.restore(path)
+    counters = [a.frame_count, a.num_loops, a._db_head]
+    assert [b.frame_count, b.num_loops, b._db_head] == counters
+    for s in (a, b):
+        s.process_chunk(*run["chunks"][SNAP_AFTER])
+    assert a.loop_pairs and a.loop_pairs == b.loop_pairs and a.num_loops == b.num_loops
+    assert a._db_head == b._db_head < counters[2]  # the ring wrapped
+    for name in ("db", "map_state", "graph"):
+        for f in dataclasses.fields(getattr(a, name)):
+            assert torch.equal(getattr(getattr(a, name), f.name),
+                               getattr(getattr(b, name), f.name)), (name, f.name)
+    np.testing.assert_array_equal(np.stack([T for _, T in a.trajectory]),
+                                  np.stack([T for _, T in b.trajectory]))
+    with np.load(path) as f:
+        assert {"db.desc", "db.covis", "torch_rng", "map_state.points"} <= set(f.files)
+        assert f["counters"].tolist() == counters
+
+
+@pytest.mark.parametrize("flag", ["enable_detection"])
 def test_loop_closure_with_unported_flags_raises(flag):
-    """Loop closure runs; with mapping or detection beside it the port
-    still raises, naming the ROADMAP.md item."""
+    """Loop closure runs; with detection beside it the port still raises,
+    naming the ROADMAP.md item."""
     ChunkedSlam(TCFG, chunk=CHUNK, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
         ChunkedSlam(dataclasses.replace(TCFG, **{flag: True}), chunk=CHUNK, device="cpu")
