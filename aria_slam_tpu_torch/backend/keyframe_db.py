@@ -6,10 +6,11 @@ bit-frequency histogram, the cheap place-recognition prefilter of loop
 closure (backend/loop_closure.py): the histogram ranks every keyframe
 at once and only the best candidates get the exact descriptor match.
 
-The chunked evaluator's batch insert and the loop links are here;
-`add_keyframe` and `covisible_slots` belong to the online loop closure
-and wait for it (ROADMAP.md queue 1 item 10). Inserts write into the
-preallocated buffers in place, where the reference donates them.
+The online step inserts one keyframe a frame (`add_keyframe`), the
+chunked evaluator a chunk's at once (`add_keyframes_batch`). Inserts
+write into the preallocated buffers in place (the default DB is 262 MB),
+where the reference donates them, and read nothing on the host: the
+ring cursor stays on the device.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from aria_slam_tpu_torch.config import LoopClosureConfig, OrbConfig
-from aria_slam_tpu_torch.core.types import KeyframeDB
+from aria_slam_tpu_torch.core.types import Features, KeyframeDB
 
 
 def descriptor_histogram(desc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
@@ -48,6 +49,17 @@ def _covis_clear(covis: torch.Tensor, slots) -> torch.Tensor:
     covis[slots] = False
     covis[:, slots] = False
     return covis
+
+
+def add_keyframe(db: KeyframeDB, feats: Features, frame_id, pose) -> KeyframeDB:
+    """Insert one keyframe at the ring cursor (the oldest is evicted once
+    full, as the reference's deque pops its front at 500), linked
+    covisible with the previous insert (temporal adjacency). Writes into
+    db's buffers and returns db with the new size and head."""
+    return add_keyframes_batch(
+        db, feats.desc[None], feats.xy[None], feats.valid[None],
+        torch.as_tensor(frame_id, dtype=torch.int32, device=db.desc.device).reshape(1),
+        pose[None])
 
 
 def add_keyframes_batch(db: KeyframeDB, desc, xy, desc_valid, frame_ids,
@@ -86,3 +98,9 @@ def mark_covisible(db: KeyframeDB, slot_a: int, slot_b: int) -> KeyframeDB:
     db.covis[slot_a, slot_b] = True
     db.covis[slot_b, slot_a] = True
     return db
+
+
+def covisible_slots(db: KeyframeDB, slot) -> torch.Tensor:
+    """(N,) bool mask of the slots covisible with `slot` (parity surface of
+    KeyFrame.covisible_keyframes, include/core/Types.hpp:42)."""
+    return db.covis[slot]

@@ -1,10 +1,10 @@
 """Carry state over from the JAX package (the counterpart of carrying
 weights; this path has no learned weights).
 
-Turns the JAX package's `Features`, `PoseGraph`, `MapState`, `EkfState`
-and VO `FrameState`, given as numpy pytrees (each leaf already a numpy
-array, e.g. after `jax.tree_util.tree_map(np.asarray, state)`), into the
-port's types on a
+Turns the JAX package's `Features`, `PoseGraph`, `KeyframeDB`,
+`MapState`, `EkfState` and online `FrameState`, given as numpy pytrees
+(each leaf already a numpy array, e.g. after
+`jax.tree_util.tree_map(np.asarray, state)`), into the port's types on a
 given device, so a port step can start from the exact carry a JAX step
 produced. `chunked_state_from_numpy` does the same for the chunked
 evaluator (pose graph, keyframe DB, map, scale carry, trajectory), from
@@ -18,8 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from aria_slam_tpu_torch.core.types import EkfState, Features, MapState, PoseGraph
-from aria_slam_tpu_torch.pipeline.slam_pipeline import FrameState
+from aria_slam_tpu_torch.core.types import EkfState, Features, KeyframeDB, MapState, PoseGraph
+from aria_slam_tpu_torch.pipeline.slam_pipeline import FrameState, ekf_device
 
 
 def _t(x, device) -> torch.Tensor:
@@ -37,8 +37,10 @@ def pose_graph_from_numpy(g, device) -> PoseGraph:
 
 
 def frame_state_from_numpy(s, device) -> FrameState:
-    """The VO subset of the JAX FrameState (EKF, keyframe DB, map and
-    RANSAC key are not part of the port's carry)."""
+    """The JAX FrameState, every feature's carry included: the EKF state
+    on the online EKF's device (slam_pipeline.ekf_device), the keyframe
+    DB and the map on `device`. The RANSAC key is not part of the port's
+    carry (the sampler draws)."""
     return FrameState(
         frame_id=int(np.asarray(s.frame_id)),
         prev_feats=features_from_numpy(s.prev_feats, device),
@@ -48,8 +50,16 @@ def frame_state_from_numpy(s, device) -> FrameState:
         prev_depths=_t(s.prev_depths, device),
         prev_depth_mask=_t(s.prev_depth_mask, device),
         vo_scale=_t(s.vo_scale, device),
+        ekf_state=ekf_state_from_numpy(s.ekf_state, ekf_device(device)),
+        db=keyframe_db_from_numpy(s.db, device),
+        map_state=map_state_from_numpy(s.map_state, device),
         graph=pose_graph_from_numpy(s.graph, device),
     )
+
+
+def keyframe_db_from_numpy(db, device) -> KeyframeDB:
+    return KeyframeDB(**{name: _t(getattr(db, name), device)
+                         for name in KeyframeDB.__dataclass_fields__})
 
 
 def map_state_from_numpy(m, device) -> MapState:

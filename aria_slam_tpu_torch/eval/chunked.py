@@ -38,7 +38,7 @@ from aria_slam_tpu_torch.core.types import Features, KeyframeDB, MapState, PoseG
 from aria_slam_tpu_torch.mapping import export, mapper
 from aria_slam_tpu_torch.ops import epipolar, match as match_ops, orb
 from aria_slam_tpu_torch.ops.undistort import undistort_points
-from aria_slam_tpu_torch.pipeline.slam_pipeline import resolve_device
+from aria_slam_tpu_torch.pipeline.slam_pipeline import fetch_many, resolve_device
 
 # the least number of loop-closure candidate pairs verified a chunk; the
 # budget is max(VERIFY_MAX, chunk), so the per-frame budget stays the
@@ -68,24 +68,6 @@ _UNPORTED = {
 # per-pair statistics process_chunk reads on the host, fetched together
 _FETCH_KEYS = ("R", "t", "ok", "pins", "ratios", "rcounts",
                "pin_oks", "pinl", "okl", "pinokl", "Rl", "tl")
-
-
-_NP_DTYPES = {torch.bool: np.bool_, torch.uint8: np.uint8, torch.int8: np.int8,
-              torch.int32: np.int32, torch.int64: np.int64, torch.float32: np.float32}
-
-
-def fetch_many(tensors) -> list:
-    """Several device tensors as numpy arrays through ONE copy to the
-    host: their bytes are concatenated on the device, copied once and
-    viewed back, so every dtype arrives exactly (bool, int32, float32)."""
-    flat = [t.contiguous().reshape(-1).view(torch.uint8) for t in tensors]
-    host = torch.cat(flat).cpu().numpy()
-    outs, off = [], 0
-    for t, f in zip(tensors, flat):
-        n = f.numel()
-        outs.append(host[off:off + n].view(_NP_DTYPES[t.dtype]).reshape(tuple(t.shape)).copy())
-        off += n
-    return outs
 
 
 def scatter_last(index: torch.Tensor, values: torch.Tensor, size: int) -> torch.Tensor:
@@ -229,27 +211,13 @@ def pairs(feats: Features, zlast, mlast, sampler, gyro_R, gyro_ok,
     return out
 
 
-def scores_chunk(db: KeyframeDB, desc, dvalid, slots, ratio: float) -> torch.Tensor:
-    """Exact ratio-test match scores of every (chunk frame, candidate)
-    pair in ONE match kernel launch over C x k pairs: the query
-    descriptors repeated per candidate (interleaved, so the counts
-    reshape to (C, k)), the candidates' gathered from the DB. desc (C, F,
-    B), dvalid (C, F), slots (C, k) -> (C, k) matches / valid queries."""
-    c, k = slots.shape
-    flat = slots.reshape(-1)
-    q = torch.repeat_interleave(desc, k, dim=0)  # (C k, F, B), 131 MB at C = 32, F = 2000
-    best, second, _ = match_ops.match_top2_batched(q, db.desc[flat], db.desc_valid[flat])
-    del q  # the gathered candidates went with the call
-    good = match_ops.ratio_gate(torch.repeat_interleave(dvalid, k, dim=0), best, second, ratio)
-    num_q = torch.clamp(dvalid.float().sum(1), min=1.0)
-    return good.float().sum(1).reshape(c, k) / num_q[:, None]
-
-
 def lc_query(db: KeyframeDB, hists, fids, desc, dvalid, cfg: PipelineConfig):
     """The histogram prefilter and the exact candidate scores of a chunk
-    -> (sims (C, k), slots (C, k), scores (C, k))."""
+    (one match kernel launch over its C x k pairs; the repeated query
+    descriptors take 131 MB at C = 32, F = 2000) -> (sims (C, k), slots
+    (C, k), scores (C, k))."""
     sims, slots = loop_closure.batch_candidates(db, hists, fids, cfg.loop)
-    return sims, slots, scores_chunk(db, desc, dvalid, slots, cfg.loop.ratio)
+    return sims, slots, loop_closure._full_scores(db, desc, dvalid, slots, cfg.loop.ratio)
 
 
 def verify_batch(db: KeyframeDB, desc, xy, dvalid, z2, m2, scales, fidx, slots, sampler,
@@ -324,9 +292,8 @@ class ChunkedSlam:
         # opt-in loop-closure diagnostics: set to [] before a run to collect,
         # a chunk, the prefilter candidates' frame ids, the exact scores, the
         # budget selection and the verify verdicts (one more fetch a chunk
-        # that verifies). The JAX package's eval/longrun.py attributes each
-        # missed loop to a stage from them; until that tool is ported only
-        # the tests read them.
+        # that verifies), with the JAX package's keys. eval/longrun.py
+        # attributes each missed loop to a stage from them (--diag).
         self.lc_diag: list | None = None
         self._db_head = 0  # host mirror of db.head
         self.trajectory: list = []

@@ -9,8 +9,13 @@ in windows of N frame pairs, decoding the next window on a worker thread
 optimisation, the offline EKF with its RTS smoother over the whole IMU
 stream, ATE (Sim3, rigid, raw), RPE and the fused ATEs, and the exports
 estimated_trajectory.txt, fused_trajectory.txt, map.ply, map.pcd (and
-trajectory.png when matplotlib is installed). Online mode (--chunk 0)
-runs the port's SlamPipeline, which runs VO only (--vo-only).
+trajectory.png when matplotlib is installed). Online mode (--chunk 0,
+the default) runs pipeline/slam_pipeline.SlamPipeline frame by frame, as
+the reference does: VO, the EKF fusion inside every frame (its track is
+the fused trajectory), loop closure with the pose-graph rebase and
+mapping; then the same final optimisation, scores and exports.
+--vo-only turns fusion, loop closure and mapping off, --no-loop loop
+closure.
 
 Usage:
     python -m aria_slam_tpu_torch.eval.euroc_eval <dataset_path> [--out DIR]
@@ -145,10 +150,11 @@ def _run_chunked(data, config, chunk, n_frames, timer, decode_timer, verbose, t_
 def _run_online(data, config, n_frames, timer, decode_timer, verbose, t_start, device,
                 sampler):
     """The online pipeline frame by frame -> (pipe, skipped images, ms a
-    frame)."""
+    frame, the EKF's positions a frame or None without fusion)."""
     from aria_slam_tpu_torch.pipeline.slam_pipeline import SlamPipeline
 
     pipe = SlamPipeline(config, device=device, sampler=sampler)
+    fused = [] if config.enable_fusion else None
     frame_times = []
     t_prev = -np.inf
     n_skipped = 0
@@ -167,11 +173,14 @@ def _run_online(data, config, n_frames, timer, decode_timer, verbose, t_start, d
         with timer.stage("frame_step"):
             pipe.process_frame(img, ts)
         frame_times.append(time.perf_counter() - f0)
+        if fused is not None:
+            fused.append(pipe.last_output.fused_pos.cpu().numpy())
         t_prev = ts
         if verbose and (k + 1) % 100 == 0:
             fps = (k + 1) / (time.perf_counter() - t_start)
-            print(f"[{k + 1}/{n_frames}] fps={fps:.1f} map=0 loops={pipe.num_loops}")
-    return pipe, n_skipped, frame_times
+            print(f"[{k + 1}/{n_frames}] fps={fps:.1f} "
+                  f"map={int(pipe.state.map_state.count)} loops={pipe.num_loops}")
+    return pipe, n_skipped, frame_times, (np.stack(fused) if fused else None)
 
 
 def ekf_inputs(data, trajectory) -> tuple:
@@ -208,12 +217,12 @@ def run(dataset_path: str, out_dir: str = ".", max_frames: int | None = None,
         chunk: int = 0, profile_dir: str | None = None,
         keep_pipe: bool = False, lc_diag: bool = False, device=None, sampler=None) -> dict:
     """chunk > 1: the chunked offline evaluator; chunk = 0: the online
-    per-frame pipeline (VO only in the port). profile_dir: a
+    per-frame pipeline. profile_dir: a
     torch.profiler trace of the loop. keep_pipe: the evaluator object
     under results['_pipe']. lc_diag: collect the chunked evaluator's
     loop-closure diagnostics (ChunkedSlam.lc_diag). device: CUDA unless
     given; sampler: RANSAC draws (see ops/epipolar.py), default a seeded
-    torch generator. The EKF runs on EKF_DEVICE."""
+    torch generator. The offline EKF runs on EKF_DEVICE."""
     from aria_slam_tpu_torch.pipeline.slam_pipeline import resolve_device
 
     data = euroc.load(dataset_path)
@@ -229,13 +238,16 @@ def run(dataset_path: str, out_dir: str = ".", max_frames: int | None = None,
     timer = StageTimer(device=device)
     decode_timer = StageTimer()  # the decode worker never waits for the card
     chunked = bool(chunk and chunk > 1)
+    fused_pos = None
     with _trace(profile_dir, device):
         if chunked:
             pipe, n_skipped, frame_times = _run_chunked(
                 data, config, chunk, n_frames, timer, decode_timer, verbose, t_start, device,
                 sampler, lc_diag)
         else:
-            pipe, n_skipped, frame_times = _run_online(
+            # the online EKF ran in every frame step: its track is the
+            # fused trajectory
+            pipe, n_skipped, frame_times, fused_pos = _run_online(
                 data, config, n_frames, timer, decode_timer, verbose, t_start, device, sampler)
     pipe.finalize()
 
@@ -248,7 +260,6 @@ def run(dataset_path: str, out_dir: str = ".", max_frames: int | None = None,
     # chunk mode fuses the IMU afterwards: the 15-state EKF over the whole
     # stream with the final-optimised chain as its VO input, smoothed (a
     # causal filter lags its input; offline the smoother uses the future)
-    fused_pos = None
     if chunked and config.enable_fusion and len(data.imu_ts) and len(est_ts):
         fused_pos = fuse(data, pipe.trajectory, config, timer=timer)
 

@@ -1,6 +1,6 @@
-"""15-state error-state EKF for visual-inertial fusion, offline: the
-merged-stream filter and its RTS smoother (counterpart of the JAX
-package's fusion/ekf.py).
+"""15-state error-state EKF for visual-inertial fusion: the online
+per-frame step, and offline the merged-stream filter with its RTS
+smoother (counterpart of the JAX package's fusion/ekf.py).
 
 Parity: the reference SensorFusion (src/legacy/IMU.cpp:104-305): state
 [p(3), v(3), dtheta(3), b_a(3), b_g(3)], the same F / G Jacobians, the
@@ -14,8 +14,12 @@ on the host from the merged tags (one copy), with the gates as tensor
 selects so no event reads the device. The smoother's gains depend only
 on the forward covariances, so they are solved for every event in one
 batched Cholesky solve, leaving a backward scan of 15 x 15 mat-vecs.
-The online per-frame entry points (`frame_step`, `predict`, `update`,
-`pose_covariance`) wait for ROADMAP.md queue 1 item 10.
+
+Online, `frame_step` runs the predict of every valid IMU sample of the
+frame's window, then the visual update (`predict`, `update`); the
+reference scans the whole padded window and keeps the state at the
+invalid samples, which is the same result. `pose_covariance` is the
+fused pose's 6 x 6 marginal.
 """
 
 from __future__ import annotations
@@ -40,6 +44,14 @@ def init_state(dtype=torch.float32, device="cuda") -> EkfState:
                     ba=zeros, bg=zeros, P=torch.diag(p_diag),
                     last_imu_t=torch.tensor(-1.0, dtype=dtype, device=device),
                     initialized=torch.tensor(False, device=device))
+
+
+def pose_covariance(state: EkfState) -> torch.Tensor:
+    """6 x 6 covariance of the fused pose over [dp(3), dtheta(3)]: the
+    marginal of P over the position and orientation-error blocks
+    (parity: core::Pose.covariance, include/core/Types.hpp:66-70)."""
+    idx = torch.tensor([0, 1, 2, 6, 7, 8], device=state.P.device)
+    return state.P[idx][:, idx]
 
 
 def process_noise(cfg: EkfConfig, dtype=torch.float32, device="cuda") -> torch.Tensor:
@@ -229,6 +241,33 @@ def _update_core(state: EkfState, R_meas, t_meas, timestamp, cfg: EkfConfig,
         initialized=state.initialized | do_init,
     )
     return new, torch.where(do_update, dx, k.zero15), do_init
+
+
+def predict(state: EkfState, t, accel, gyro, cfg: EkfConfig, k: _Consts = None) -> EkfState:
+    """One IMU propagation step (parity: predictEKF, IMU.cpp:139-222); a
+    no-op but for the timestamp when gated (see _predict_core)."""
+    return _predict_core(state, t, accel, gyro, cfg, k)[0]
+
+
+def update(state: EkfState, R_meas, t_meas, timestamp, cfg: EkfConfig, meas_valid=True,
+           k: _Consts = None) -> EkfState:
+    """One visual-pose update (parity: addVisualPose / updateEKF,
+    IMU.cpp:224-305); the first valid measurement initialises the state."""
+    return _update_core(state, R_meas, t_meas, timestamp, cfg, meas_valid, k)[0]
+
+
+def frame_step(state: EkfState, imu_t, imu_accel, imu_gyro, imu_valid, R_vo, t_vo, vo_valid,
+               frame_t, cfg: EkfConfig, k: _Consts = None) -> EkfState:
+    """Online per-frame fusion: predict at every valid sample of the
+    padded IMU window, in order, then the VO update. imu_valid is a host
+    mask (numpy or a CPU tensor): the reference's masked scan leaves the
+    state as it is at an invalid sample, so only the valid ones run, and
+    choosing them reads nothing from the device. The tensors lie on the
+    state's device."""
+    k = k or _Consts(cfg, state.P.dtype, state.P.device)
+    for i in np.flatnonzero(np.asarray(imu_valid)):
+        state = predict(state, imu_t[i], imu_accel[i], imu_gyro[i], cfg, k)
+    return update(state, R_vo, t_vo, frame_t, cfg, vo_valid, k)
 
 
 def _check_sorted(name, arr) -> None:

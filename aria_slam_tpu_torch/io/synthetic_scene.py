@@ -260,12 +260,14 @@ def generate(
     traj: "sweep" | "rotloop" (see trajectory()); period: the revisit
     period in seconds; structure: "layers" (the multi-depth scene) or
     "plane" (a single plane, a degeneracy stress test); exposure_drift:
-    sinusoidal gain amplitude over the period. The occluder, the moving
-    object, sensor noise and motion blur are not ported yet and raise."""
+    sinusoidal gain amplitude over the period; occluder: a featureless
+    block drifting across the view (texture hidden, then revealed, as by
+    a passing foreground object), its grey level drawn from the
+    reference's generator. The moving object, sensor noise and motion
+    blur are not ported yet and raise."""
     from aria_slam_tpu_torch.io.euroc import encode_png_gray8
 
-    unported = {"occluder": (occluder, "queue 1 item 11"),
-                "moving_object": (moving_object, "queue 1 item 8"),
+    unported = {"moving_object": (moving_object, "queue 1 item 8"),
                 "noise_std": (noise_std > 0.0, "queue 1 item 11"),
                 "motion_blur": (motion_blur > 1, "queue 1 item 11")}
     for name, (asked, item) in unported.items():
@@ -286,10 +288,20 @@ def generate(
     t0_ns = 1_400_000_000_000_000_000  # EuRoC-style epoch ns
 
     cam_rows = []
+    occ_rng = np.random.default_rng(seed + 7)
     for k in range(num_frames):
         t = k / fps
         pos, R = trajectory(t, depth=depth, kind=traj, period=period)
         img = render_frame(cam, tex, pos, R, depth=depth, layers=layers)
+        if occluder:
+            bw, bh = cam.width // 4, cam.height // 3
+            cx = int((k * 7) % (cam.width + bw)) - bw // 2
+            cy = cam.height // 2 + int(20 * np.sin(k / 9.0))
+            x1, x2 = max(cx - bw // 2, 0), min(cx + bw // 2, cam.width)
+            y1, y2 = max(cy - bh // 2, 0), min(cy + bh // 2, cam.height)
+            if x2 > x1 and y2 > y1:
+                img = img.copy()
+                img[y1:y2, x1:x2] = int(occ_rng.uniform(35, 55))
         if exposure_drift > 0.0:
             gain = 1.0 + exposure_drift * np.sin(2 * np.pi * t / period)
             img = np.clip(img.astype(np.float32) * gain, 0, 255)

@@ -9,7 +9,7 @@ image, 3-sigma statistical outlier removal, bounding box.
 The map is a fixed-capacity MapState; an insert triangulates all
 matches at once (leading pair axes allowed), computes every gate as a
 tensor op and writes the survivors at the cursor, compacted and in
-order, with no read on the host.
+order, in place and with no read on the host.
 """
 
 from __future__ import annotations
@@ -98,29 +98,36 @@ def triangulate_and_filter(K, T1_cw, T2_cw, uv1, uv2, valid, image1, cfg: Mapper
 
 
 def insert_points(m: MapState, points, colors, quality, keep) -> MapState:
-    """Write the surviving points at the cursor, compacted and in order.
-    points (N, 3), colors (N, 3), quality (N,), keep (N,).
+    """Write the surviving points at the cursor, compacted and in order,
+    into m's buffers in place (the default map is 200,000 points; the
+    reference donates its buffers). points (N, 3), colors (N, 3), quality
+    (N,), keep (N,). Returns m with the new count.
 
-    Each stored field becomes the first P rows of a (P + 1)-row buffer:
-    dropped points and points past capacity go to its last, scratch row,
-    so every index is in range and nothing is read on the host."""
+    The survivors can reach only the w = min(N, P) slots from the cursor
+    on, taken modulo P so that they are distinct: each field's window is
+    gathered into a (w + 1)-row buffer, the survivors are written at their
+    ranks in it (dropped points and points past capacity to its last,
+    scratch row) and the w rows are written back, the untouched ones
+    unchanged. Every index is in range and nothing is read on the host."""
     cap = m.points.shape[0]
+    w = min(keep.shape[0], cap)
     keep_i = keep.to(torch.int64)
-    offsets = torch.cumsum(keep_i, 0) - keep_i  # rank among the survivors
-    slots = m.count.to(torch.int64) + offsets
-    slots = torch.where(keep & (slots < cap), slots, cap)
+    rank = torch.cumsum(keep_i, 0) - keep_i  # rank among the survivors
+    count = m.count.to(torch.int64)
+    window = (count + torch.arange(w, device=keep.device)) % cap
+    # rank < w wherever count + rank < cap
+    place = torch.where(keep & (count + rank < cap), rank, w)
 
     def put(field, values):
-        buf = torch.cat([field, field.new_zeros((1,) + field.shape[1:])])
-        return buf.index_copy_(0, slots, values.to(field.dtype))[:cap]
+        buf = torch.cat([field[window], field.new_zeros((1,) + field.shape[1:])])
+        buf.index_copy_(0, place, values.to(field.dtype))
+        field.index_copy_(0, window, buf[:w])
 
-    return MapState(
-        points=put(m.points, points),
-        colors=put(m.colors, colors),
-        quality=put(m.quality, quality),
-        valid=put(m.valid, torch.ones_like(keep)),
-        count=torch.clamp(m.count + keep_i.sum().to(torch.int32), max=cap),
-    )
+    put(m.points, points)
+    put(m.colors, colors)
+    put(m.quality, quality)
+    put(m.valid, torch.ones_like(keep))
+    return m.replace(count=torch.clamp(m.count + keep_i.sum().to(torch.int32), max=cap))
 
 
 def add_from_matches(m: MapState, K, T1_cw, T2_cw, uv1, uv2, valid, image1,

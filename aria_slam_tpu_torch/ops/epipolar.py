@@ -332,6 +332,25 @@ def estimate_relative_pose(xy1, xy2, valid, K, cfg: RansacConfig, sampler) -> Po
                      success=success)
 
 
+def scale_translation(delta: PoseDelta, xy1, xy2, valid, K, scene_depth: float) -> torch.Tensor:
+    """The unit translation rescaled so that the masked geometric mean of
+    the inliers' triangulated depths (clipped to [1e-3, 1e4]) equals
+    `scene_depth`; unscaled with fewer than 20 such depths."""
+    z1, _ = triangulate_depths(delta.R, delta.t, normalize_points(xy1, K),
+                               normalize_points(xy2, K))
+    good = delta.inlier_mask & valid & (z1 > 1e-3)
+    cnt = good.float().sum(-1)
+    mean_log = (torch.where(good, torch.log(torch.clamp(z1, 1e-3, 1e4)), 0.0).sum(-1)
+                / torch.clamp(cnt, min=1.0))
+    scale = torch.where(cnt >= 20, scene_depth / torch.clamp(torch.exp(mean_log), min=1e-3), 1.0)
+    return delta.t * torch.clamp(scale, 0.01, 100.0)[..., None]
+
+
+def gather_correspondences(f1_xy, f2_xy, matches):
+    """Matches -> aligned (N, 2) coordinates of both frames and the mask."""
+    return f1_xy[matches.query_idx.long()], f2_xy[matches.train_idx.long()], matches.valid
+
+
 def pair_depths(delta: PoseDelta, xy1, xy2, valid, K):
     """Per-correspondence two-view depths under the pair's unit-|t| scale
     -> (z1, z2, good)."""

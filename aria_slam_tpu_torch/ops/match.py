@@ -5,7 +5,7 @@ Every kNN-2 goes through the match kernel (ops/cuda/match_kernel.py),
 except the cross-checked form, which needs the whole distance matrix
 and builds it with `hamming_matrix`, as the reference does. Loop
 closure's candidate scores and verify matches use the kernel too
-(eval/chunked.scores_chunk, backend/loop_closure.py).
+(backend/loop_closure.py).
 `match_scores_vs_database` serves the sharded keyframe DB and waits for
 parallel/sharded_db.py (ROADMAP.md queue 1 item 12).
 """

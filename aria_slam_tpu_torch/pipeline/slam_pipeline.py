@@ -1,15 +1,28 @@
-"""SlamPipeline: the online per-frame orchestrator, VO-only (counterpart
-of the JAX package's pipeline/slam_pipeline.py).
+"""SlamPipeline: the online per-frame orchestrator (counterpart of the JAX
+package's pipeline/slam_pipeline.py).
 
 Per frame: ORB extraction, undistortion, matching against the previous
 frame, gyro-fused essential RANSAC, the monocular scale pin or
-propagation, pose accumulation, and a pose-graph node + odometry edge;
-`finalize` runs the final pose-graph optimisation. The step runs eagerly
-on one device; everything between the uploaded image and the pose stays
-there. The online EKF fusion, loop closure and mapping, detection,
-dynamic filtering and the pipelined (lazy) mode are not ported yet:
-asking for them raises NotImplementedError naming the ROADMAP item that
-will port them.
+propagation, pose accumulation, a pose-graph node + odometry edge, the
+map insert (the inlier matches triangulated against the previous frame)
+and loop detection against the keyframe DB before the frame's own
+insert. A detected loop adds a loop edge, optimises the graph and
+rebases the running pose on it (`_handle_loop`); the EKF fuses the
+frame's IMU window with its VO pose. `finalize` runs the final
+optimisation.
+
+The step runs eagerly on one device and writes the keyframe DB and the
+map in place. Reads on the host, a frame: one inside the step when loop
+closure is on (whether any candidate is worth verifying,
+loop_closure.detect), and one when the frame is published (its pose, VO
+flag and loop flag, in one copy); a loop adds the reads of its edge and
+of the rebased pose. The EKF consumes only the published pose and VO
+flag, and nothing in the step consumes the EKF, so it runs at
+publishing, on the host (EKF_ON_HOST). With lazy_depth > 0 (pipelined mode)
+process_frame returns None and publishes each frame lazy_depth frames
+late, so the host enqueues the next steps while the card runs.
+Detection and dynamic filtering are not ported yet: asking for them
+raises NotImplementedError naming the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
@@ -20,20 +33,27 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from aria_slam_tpu_torch.backend import pose_graph
+from aria_slam_tpu_torch.backend import keyframe_db, loop_closure, pose_graph
+from aria_slam_tpu_torch.backend.loop_closure import LoopResult
 from aria_slam_tpu_torch.config import PipelineConfig
 from aria_slam_tpu_torch.core import lie
-from aria_slam_tpu_torch.core.types import Features, PoseGraph, make_empty_features
+from aria_slam_tpu_torch.core.types import (
+    EkfState, Features, KeyframeDB, MapState, PoseGraph, make_empty_features,
+)
+from aria_slam_tpu_torch.fusion import ekf
+from aria_slam_tpu_torch.mapping import export, mapper
 from aria_slam_tpu_torch.ops import epipolar, match as match_ops, orb
 from aria_slam_tpu_torch.ops.undistort import undistort_points
 
+# The online EKF runs on the host whatever device the step runs on: a
+# frame's 10-20 predicts and one update are a few dozen 15 x 15 ops each,
+# which cost less on the CPU than as launches on the card (PERF.md: the
+# online phase of chip_smoke.py times both routes on the run's own
+# inputs). It runs from the pose that publishing reads anyway.
+EKF_ON_HOST = True
+
 # flag -> the ROADMAP.md queue-1 item that ports it
 _UNPORTED = {
-    "enable_fusion": ("queue 1 item 10 (the online EKF: ekf.frame_step, predict, update "
-                      "and pose_covariance)"),
-    "enable_loop_closure": ("queue 1 item 10 (the online loop closure: loop_closure.detect, "
-                            "keyframe_db.add_keyframe and the online branch)"),
-    "enable_mapping": "queue 1 item 10 (the online mapping: mapper.add_from_matches in the step)",
     "enable_detection": "queue 1 item 8 (detector)",
     "enable_dynamic_filtering": "queue 1 item 8 (detector)",
 }
@@ -45,7 +65,7 @@ def check_supported(cfg: PipelineConfig) -> None:
         if getattr(cfg, flag):
             raise NotImplementedError(
                 f"{flag}=True is not ported to aria_slam_tpu_torch yet; "
-                f"see ROADMAP.md {item}. Set it to False for the VO-only pipeline.")
+                f"see ROADMAP.md {item}. Set it to False.")
 
 
 def resolve_device(device) -> torch.device:
@@ -58,11 +78,34 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def ekf_device(device) -> torch.device:
+    """Where the online EKF of a step on `device` runs (EKF_ON_HOST)."""
+    return torch.device("cpu") if EKF_ON_HOST else torch.device(device)
+
+
+_NP_DTYPES = {torch.bool: np.bool_, torch.uint8: np.uint8, torch.int8: np.int8,
+              torch.int32: np.int32, torch.int64: np.int64, torch.float32: np.float32}
+
+
+def fetch_many(tensors) -> list:
+    """Several device tensors as numpy arrays through ONE copy to the
+    host: their bytes are concatenated on the device, copied once and
+    viewed back, so every dtype arrives exactly (bool, int32, float32)."""
+    flat = [t.contiguous().reshape(-1).view(torch.uint8) for t in tensors]
+    host = torch.cat(flat).cpu().numpy()
+    outs, off = [], 0
+    for t, f in zip(tensors, flat):
+        n = f.numel()
+        outs.append(host[off:off + n].view(_NP_DTYPES[t.dtype]).reshape(tuple(t.shape)).copy())
+        off += n
+    return outs
+
+
 @dataclasses.dataclass
 class FrameState:
-    """The carry of the per-frame step (the VO subset of the reference's)."""
+    """The carry of the per-frame step."""
 
-    frame_id: int                   # frames processed so far
+    frame_id: int                   # frames processed so far (the last frame's node id)
     prev_feats: Features
     prev_valid: torch.Tensor        # () bool: have a previous frame
     pose: torch.Tensor              # (4, 4) world-from-camera
@@ -72,6 +115,9 @@ class FrameState:
     prev_depths: torch.Tensor       # (F,) float32
     prev_depth_mask: torch.Tensor   # (F,) bool
     vo_scale: torch.Tensor          # () float32
+    ekf_state: EkfState             # on ekf_device(the step's device)
+    db: KeyframeDB
+    map_state: MapState
     graph: PoseGraph
 
     def replace(self, **changes) -> "FrameState":
@@ -84,7 +130,13 @@ class StepOutput:
     num_features: torch.Tensor  # () int32
     num_matches: torch.Tensor   # () int32
     num_inliers: torch.Tensor   # () int32
+    num_filtered: torch.Tensor  # () int32: matches the dynamic filter dropped (0: not ported)
     vo_success: torch.Tensor    # () bool
+    loop: LoopResult
+    # the EKF position and quaternion after this frame, set when it is
+    # published (process_frame in sync mode, the pop in lazy mode)
+    fused_pos: Optional[torch.Tensor] = None   # (3,)
+    fused_quat: Optional[torch.Tensor] = None  # (4,)
 
 
 def init_state(cfg: PipelineConfig, device) -> FrameState:
@@ -100,6 +152,9 @@ def init_state(cfg: PipelineConfig, device) -> FrameState:
         prev_depths=torch.zeros((nf,), device=device),
         prev_depth_mask=torch.zeros((nf,), dtype=torch.bool, device=device),
         vo_scale=torch.tensor(1.0, device=device),
+        ekf_state=ekf.init_state(device=ekf_device(device)),
+        db=keyframe_db.init_db(cfg.loop, cfg.orb, device),
+        map_state=mapper.init_map(cfg.mapper, device),
         graph=g,
     )
 
@@ -120,15 +175,21 @@ def gyro_rotation(prev_ts, imu_t, imu_gyr, imu_valid, R_ci):
 
 def make_frame_step(cfg: PipelineConfig, sampler, extractor: Optional[Callable] = None,
                     matcher: Optional[Callable] = None, device="cuda"):
-    """Build the per-frame step with injected components."""
+    """Build the per-frame step with injected components. The loop
+    verification draws from `sampler` with the stages "loop_essential" /
+    "loop_homography"."""
     K = torch.as_tensor(cfg.camera.K, device=device)
     R_ci = torch.tensor(cfg.imu_cam_rotation, dtype=torch.float32, device=device)
     extractor = extractor or (lambda img: orb.extract(img, cfg.orb))
     matcher = matcher or (
         lambda q, t: match_ops.match(q, t, cfg.matcher.ratio, cfg.matcher.cross_check))
 
+    def loop_sampler(valid, num_hypotheses, sample_size, stage):
+        return sampler(valid, num_hypotheses, sample_size, "loop_" + stage)
+
     def step(state: FrameState, image, imu_t, imu_acc, imu_gyr, imu_valid, ts):
         image = image.to(torch.float32)  # uint8 uploads are exact
+        dev = image.device
         feats = extractor(image)
         feats = feats.replace(xy=undistort_points(feats.xy, cfg.camera))
 
@@ -138,8 +199,7 @@ def make_frame_step(cfg: PipelineConfig, sampler, extractor: Optional[Callable] 
         num_matches = m_valid.to(torch.int32).sum()
 
         # epipolar VO with the gyro rotation fused where IMU is present
-        xy_cur = feats.xy[m.query_idx.long()]
-        xy_prev = state.prev_feats.xy[m.train_idx.long()]
+        xy_cur, xy_prev, _ = epipolar.gather_correspondences(feats.xy, state.prev_feats.xy, m)
         if cfg.gyro_chain_rotation:
             Rg = gyro_rotation(state.prev_ts, imu_t, imu_gyr, imu_valid, R_ci)
             has_g = (imu_valid.to(torch.int32).sum() >= 2) & state.prev_valid
@@ -150,7 +210,7 @@ def make_frame_step(cfg: PipelineConfig, sampler, extractor: Optional[Callable] 
         else:
             delta = epipolar.estimate_relative_pose(
                 xy_prev, xy_cur, m_valid, K, cfg.ransac, sampler)
-            has_g = torch.tensor(False, device=image.device)
+            has_g = torch.tensor(False, device=dev)
         vo_ok = delta.success & state.prev_valid
 
         # metric scale: "propagate" chains it through features shared with
@@ -172,15 +232,15 @@ def make_frame_step(cfg: PipelineConfig, sampler, extractor: Optional[Callable] 
                 scale = pin
             scale = torch.clamp(scale, 0.01, 100.0)
             t_use = delta.t * scale
-            new_depths = torch.zeros((nf,), device=image.device).index_put(
+            new_depths = torch.zeros((nf,), device=dev).index_put(
                 (qidx,), torch.where(zgood, z2, 0.0))
-            new_dmask = torch.zeros((nf,), dtype=torch.bool, device=image.device).index_put(
+            new_dmask = torch.zeros((nf,), dtype=torch.bool, device=dev).index_put(
                 (qidx,), zgood) & vo_ok
             new_scale = torch.where(vo_ok, scale, state.vo_scale)
         else:
             t_use = delta.t
-            new_depths = torch.zeros((nf,), device=image.device)
-            new_dmask = torch.zeros((nf,), dtype=torch.bool, device=image.device)
+            new_depths = torch.zeros((nf,), device=dev)
+            new_dmask = torch.zeros((nf,), dtype=torch.bool, device=dev)
             new_scale = state.vo_scale
         T_cur_prev = lie.se3_matrix(delta.R, t_use)
         pose_new = torch.where(vo_ok, state.pose @ lie.se3_inverse(T_cur_prev), state.pose)
@@ -195,15 +255,45 @@ def make_frame_step(cfg: PipelineConfig, sampler, extractor: Optional[Callable] 
             r_weight=torch.where(has_g, cfg.pose_graph.gyro_rot_weight, 1.0))
         graph = pose_graph.select(vo_ok, graph_with_edge, graph)
 
+        # mapping: the inlier matches triangulated against the previous
+        # frame (camera-from-world ends), coloured from this image
+        map_state = state.map_state
+        if cfg.enable_mapping:
+            map_state = mapper.add_from_matches(
+                map_state, K, lie.se3_inverse(state.pose), lie.se3_inverse(pose_new),
+                xy_prev, xy_cur, m_valid & delta.inlier_mask & vo_ok, image, cfg.mapper)
+
+        # loop closure: query BEFORE inserting the current frame
+        db = state.db
+        if cfg.enable_loop_closure:
+            loop = loop_closure.detect(
+                db, feats, state.frame_id, K, cfg.loop, cfg.ransac, loop_sampler,
+                cfg.vo_scale_mode, cfg.vo_scene_depth, depths=new_depths,
+                depth_mask=new_dmask, depth_scale=new_scale)
+            cur_slot = db.head.long().reshape(1)  # where the insert puts this frame
+            db = keyframe_db.add_keyframe(db, feats, state.frame_id, pose_new)
+            # an accepted loop pair observes the same scene: link it in the
+            # covisibility graph, unless the insert just evicted the
+            # matched keyframe (at capacity the oldest slot, which passes
+            # the gap gate most easily); no loop links nothing
+            link = (loop.detected & (loop.slot != cur_slot[0])).reshape(1)
+            a = torch.where(link, loop.slot.long(), cur_slot)
+            for ij in ((a, cur_slot), (cur_slot, a)):
+                db.covis.index_put_(ij, db.covis[ij] | link)
+        else:
+            loop = loop_closure.no_loop(dev)
+
         new_state = FrameState(
             frame_id=node_id, prev_feats=feats,
-            prev_valid=torch.tensor(True, device=image.device), pose=pose_new,
+            prev_valid=torch.tensor(True, device=dev), pose=pose_new,
             prev_ts=ts, prev_depths=new_depths, prev_depth_mask=new_dmask,
-            vo_scale=new_scale, graph=graph,
+            vo_scale=new_scale, ekf_state=state.ekf_state, db=db, map_state=map_state,
+            graph=graph,
         )
         out = StepOutput(pose=pose_new, num_features=feats.num_valid(),
                          num_matches=num_matches, num_inliers=delta.num_inliers,
-                         vo_success=vo_ok)
+                         num_filtered=torch.zeros((), dtype=torch.int32, device=dev),
+                         vo_success=vo_ok, loop=loop)
         return new_state, out
 
     return step
@@ -212,10 +302,12 @@ def make_frame_step(cfg: PipelineConfig, sampler, extractor: Optional[Callable] 
 class SlamPipeline:
     """Host-side orchestrator around the per-frame step.
 
-    Parity API: processFrame / processIMU / finalize / trajectory. Runs
-    on CUDA unless `device` says otherwise; RANSAC draws from an explicit
-    torch.Generator seeded with `seed`, or from `sampler` when given
-    (see ops/epipolar.py).
+    Parity API: processFrame / processIMU / callbacks (on_pose, on_loop) /
+    finalize / trajectory / the map. Runs on CUDA unless `device` says
+    otherwise; RANSAC draws from an explicit torch.Generator seeded with
+    `seed`, or from `sampler` when given (see ops/epipolar.py).
+    lazy_depth > 0: the pipelined mode (see the module docstring); read
+    the trajectory after `flush` or `finalize`.
     """
 
     def __init__(self, config: PipelineConfig | None = None, *, device=None,
@@ -223,10 +315,6 @@ class SlamPipeline:
                  lazy_depth: int = 0):
         self.config = config or PipelineConfig()
         check_supported(self.config)
-        if lazy_depth:
-            raise NotImplementedError(
-                "the pipelined (lazy_depth > 0) online mode is not ported to "
-                "aria_slam_tpu_torch yet; see ROADMAP.md queue 1 item 10")
         self.device = resolve_device(device)
         if sampler is None:
             gen = torch.Generator(device=self.device)
@@ -234,12 +322,20 @@ class SlamPipeline:
             sampler = epipolar.TorchSampler(gen)
         self._step = make_frame_step(self.config, sampler, extractor, matcher, self.device)
         self.state = init_state(self.config, self.device)
+        self._ekf_consts = ekf._Consts(self.config.ekf, torch.float32, ekf_device(self.device))
         self._imu_buf: list = []
         self._t0: float | None = None
         self.on_pose: Optional[Callable] = None
+        self.on_loop: Optional[Callable] = None
+        self.num_loops = 0
+        # accepted loops as (matched frame, query frame) indices, as
+        # ChunkedSlam.loop_pairs
+        self.loop_pairs: list = []
         self.trajectory: list = []  # (ts, 4x4 pose) after each frame
         self.last_output: StepOutput | None = None
-        self.num_loops = 0  # the online loop closure is not ported (check_supported)
+        # pipelined mode: dispatched frames waiting to be published
+        self._lazy = int(lazy_depth)
+        self._pending: list = []
 
     # parity: processIMU(ImuMeasurement)
     def process_imu(self, timestamp: float, accel, gyro) -> None:
@@ -247,6 +343,8 @@ class SlamPipeline:
                               np.asarray(gyro, np.float32)))
 
     def _drain_imu(self, ts: float):
+        """The samples up to ts, newest `imu_window` of them, packed first
+        into the padded window -> (t, accel, gyro, valid) host arrays."""
         w = self.config.ekf.imu_window
         t = np.zeros(w, np.float32)
         a = np.zeros((w, 3), np.float32)
@@ -268,7 +366,7 @@ class SlamPipeline:
         return float(ts - self._t0)
 
     # parity: processFrame(data, w, h, ts) -> Pose
-    def process_frame(self, image: np.ndarray, timestamp: float) -> np.ndarray:
+    def process_frame(self, image: np.ndarray, timestamp: float) -> np.ndarray | None:
         ts = self._rel(timestamp)
         imu = self._drain_imu(timestamp)
         dev = self.device
@@ -277,26 +375,107 @@ class SlamPipeline:
             self.state, img, *(torch.from_numpy(x).to(dev) for x in imu),
             torch.tensor(ts, dtype=torch.float32, device=dev))
         self.last_output = out
-        pose = self.state.pose.cpu().numpy()
+        # the frame's node id, and the loops applied when it was dispatched
+        frame = (timestamp, ts, imu, out, self.state.frame_id, self.num_loops)
+        if not self._lazy:
+            return self._publish(*frame)
+        self._pending.append(frame)
+        if len(self._pending) > self._lazy:
+            self._publish(*self._pending.pop(0))
+        return None
+
+    def _publish(self, timestamp, ts, imu, out: StepOutput, node_id: int,
+                 loops_at_dispatch: int) -> np.ndarray:
+        """Read a dispatched frame's results (one copy), run its EKF step,
+        apply its loop and append its pose to the trajectory."""
+        pose, vo_ok, detected = fetch_many([out.pose, out.vo_success, out.loop.detected])
+        if self.config.enable_fusion:
+            self._fuse(imu, ts, pose, vo_ok)
+        out.fused_pos, out.fused_quat = self.state.ekf_state.pos, self.state.ekf_state.quat
+        if detected:
+            self._handle_loop(out, node_id)
+        if self.num_loops > loops_at_dispatch:
+            # a loop optimisation landed after this frame was dispatched (its
+            # own, or in lazy mode a later pop's): publish the node's
+            # optimised pose, as the rebased running pose is in sync mode
+            pose = pose_graph.get_pose(self.state.graph, node_id).cpu().numpy()
         self.trajectory.append((timestamp, pose))
         if self.on_pose is not None:
             self.on_pose(timestamp, pose)
         return pose
 
-    def export_map(self, ply_path: Optional[str] = None,
-                   pcd_path: Optional[str] = None) -> int:
-        """The online step builds no map yet (enable_mapping raises): the
-        files are written with no point."""
-        from aria_slam_tpu_torch.mapping import export, mapper
+    def _fuse(self, imu, ts: float, pose: np.ndarray, vo_ok: np.ndarray) -> None:
+        """The frame's EKF step: predicts over its IMU window, then the VO
+        pose as the measurement (valid where VO succeeded, and always
+        until the filter is initialised)."""
+        s = self.state.ekf_state
+        dev = s.P.device
 
-        empty = mapper.init_map(dataclasses.replace(self.config.mapper, max_points=0), "cpu")
-        return export.export_map(empty, ply_path, pcd_path)
+        def t(x):
+            return torch.as_tensor(x, dtype=torch.float32, device=dev)
+
+        imu_t, imu_a, imu_g, imu_v = imu
+        new = ekf.frame_step(
+            s, t(imu_t), t(imu_a), t(imu_g), imu_v, t(pose[:3, :3]), t(pose[:3, 3]),
+            torch.as_tensor(vo_ok, device=dev) | ~s.initialized, t(ts), self.config.ekf,
+            self._ekf_consts)
+        self.state = self.state.replace(ekf_state=new)
+
+    def flush(self) -> None:
+        """Publish every dispatched frame (pipelined mode); call before
+        reading the trajectory."""
+        while self._pending:
+            self._publish(*self._pending.pop(0))
+
+    def _handle_loop(self, out: StepOutput, node_id: int) -> None:
+        """Parity: on a loop, addLoopEdge + optimize + adopt the pose. The
+        loop's query frame is node node_id; the matched keyframe's frame
+        id f is node f + 1 (node 0 is the origin before the first frame)."""
+        cfgpg = self.config.pose_graph
+        fid, twt, score = fetch_many([out.loop.frame_id, out.loop.t_weight, out.loop.score])
+        # T_rel maps current-cam points into matched-cam coordinates,
+        # T_{matched<-current}: with world-from-camera nodes the edge (i =
+        # matched, j = current) measures T_i^-1 T_j, which is T_rel itself
+        g = pose_graph.add_loop_edge(self.state.graph, int(fid) + 1, node_id, out.loop.T_rel,
+                                     cfgpg, t_weight=float(twt))
+        g = pose_graph.optimize(g, cfgpg)
+        # rebase the running pose on the newest dispatched node (in lazy
+        # mode frames after the loop's query frame already exist)
+        self.state = self.state.replace(graph=g,
+                                        pose=pose_graph.get_pose(g, self.state.frame_id))
+        self.num_loops += 1
+        self.loop_pairs.append((int(fid), node_id - 1))
+        if self.on_loop is not None:
+            self.on_loop(int(fid), node_id - 1, float(score))
 
     # final global optimisation (parity: optimize(50) at the end)
     def finalize(self) -> None:
+        self.flush()
         g = pose_graph.optimize(self.state.graph, self.config.pose_graph,
                                 self.config.pose_graph.final_lm_iterations)
         self.state = self.state.replace(graph=g)
         n = len(self.trajectory)
         poses = g.node_pose[1: n + 1].cpu().numpy()
         self.trajectory = [(ts, poses[i]) for i, (ts, _) in enumerate(self.trajectory)]
+
+    # map access (parity: the IMapper surface)
+    def get_map(self) -> MapState:
+        return mapper.filter_outliers(self.state.map_state, self.config.mapper.outlier_sigma)
+
+    def export_map(self, ply_path: Optional[str] = None,
+                   pcd_path: Optional[str] = None) -> int:
+        return export.export_map(self.get_map(), ply_path, pcd_path)
+
+    @property
+    def fused_pose(self) -> np.ndarray:
+        s = self.state.ekf_state
+        T = np.eye(4, dtype=np.float32)
+        T[:3, :3] = lie.quat_to_mat(s.quat).cpu().numpy()
+        T[:3, 3] = s.pos.cpu().numpy()
+        return T
+
+    @property
+    def fused_pose_covariance(self) -> np.ndarray:
+        """6 x 6 [dp, dtheta] covariance of the fused pose (parity:
+        core::Pose.covariance, include/core/Types.hpp:66-70)."""
+        return ekf.pose_covariance(self.state.ekf_state).cpu().numpy()

@@ -13,9 +13,10 @@ Phases, one line each; any failure raises and exits non-zero:
 3. kernels -- each kernel against its plain PyTorch version on the card,
               at the shapes of the online VO slice (752x480, 8 levels,
               2000 features) and of the chunked path (B = 33 frames,
-              N = 32 and 29 pairs): the corner maps bit-equal at B = 1, 3
-              and 33, the match results bit-exact on eleven cases up to
-              N = 256 pairs of 2000x2000, the patches of all 8 levels
+              N = 32 and 29 pairs) and of the online loop closure (N = 8
+              candidates, N = 5 verify pairs): the corner maps bit-equal at
+              B = 1, 3 and 33, the match results bit-exact on thirteen cases
+              up to N = 256 pairs of 2000x2000, the patches of all 8 levels
               exactly equal at B = 1, 3 and 33 (detector keypoints, and
               edge centres),
               and rBRIEF from one product over all levels against one a
@@ -27,7 +28,7 @@ Phases, one line each; any failure raises and exits non-zero:
               card could take and the kernel's time with its launch cost;
               the corner and patch kernels also at B = 33 frames (the
               chunked front end's one launch a chunk), the match kernel
-              also at N = 4, 32 (a chunk's consecutive pairs) and 256.
+              also at N = 4, 5, 8, 32 (a chunk's consecutive pairs) and 256.
 4. slice   -- 20 rendered frames through the port's own entry points
               (factory.create_gpu, SlamPipeline.process_imu /
               process_frame / finalize) in the VO-only configuration at
@@ -48,8 +49,8 @@ Phases, one line each; any failure raises and exits non-zero:
               --profile also the kernels and cudaLaunchKernel calls of
               one steady chunk and the device's busy share.
 6. loop    -- the accuracy benchmark's full-resolution configuration
-              (benchmark_config(full_res=True) of the JAX package's
-              eval/accuracy_benchmark.py as it is: loop gates 150 / 0.3 /
+              (the port's eval/accuracy_benchmark.benchmark_config(full_res=
+              True), the JAX package's as it is: loop gates 150 / 0.3 /
               40, 512 keyframes, vo_backbone_scale, mapping into a
               100,000-point map) with loop closure on: 257
               rendered frames of the rotloop trajectory (20 s period, 10
@@ -96,13 +97,33 @@ Phases, one line each; any failure raises and exits non-zero:
               is <= 1.15 x vio's + 0.02 m, each fused track's Sim3 and raw
               ATE are within 1e-3 m of its chain's or below, and map.ply
               holds map_points points.
+8. online  -- the port's default online entry point, euroc_eval.run with
+              chunk=0, on the eval phase's rotloop directory (libpng-
+              filtered PNGs) in the vio_lc configuration (fusion, loop
+              closure, mapping), counts set to 0 just before it: Sim3 /
+              rigid / raw ATE and the fused three, loops and their
+              precision, frame step ms (median, p90, with and without a
+              verify), loop_optimize ms a loop, finalize ms, the online
+              EKF's frame steps replayed on the host and on the card (ms a
+              frame each), launches a frame (match by role: N = 8 scores a
+              frame, N = 5 on verifying frames), peak memory. Fails unless
+              poses are finite, a loop is found at precision >= 0.9, the
+              fused Sim3 ATE <= 1.1 x that of the chain as published frame
+              by frame (what the EKF consumed) + 0.02 m, map.ply holds
+              map_points points and the launch counts are the run's. Then
+              PipelineConfig() as it is (a 512-keyframe DB, a 200,000-point
+              map, a 4096-node graph) on 40 frames, and
+              online_benchmark.run_mode in sync and in lazy mode (depth 3)
+              on 24 full-width frames: both ms a frame, the trajectories
+              within 1e-5 m.
 
 The line before the last holds the card's name and power limit as
 nvidia-smi reports them, the one before it the kernels' JSON record (each
 kernel at the online slice's shape with that slice's launches, at the
-chunked path's shape with that path's, and the match kernel at the loop
+chunked path's shape with that path's, the match kernel at the loop
 path's two shapes, the verify batch on that run's own inputs, with the
-launches counted inside lc_query and verify_batch), and the last line is
+launches counted inside lc_query and verify_batch, and at the online loop
+closure's two, with the launches of the online phase), and the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -114,6 +135,7 @@ import gc
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -303,6 +325,8 @@ def check_match(dev, rng):
              "kq5": case(3, 5, 640), "kt1001": case(2, 700, 1001),
              "N32": case_on_card(32, 2000, 2000, seed=2),
              "N29": case_on_card(29, 2000, 2000, seed=3),
+             "N8": case_on_card(8, 2000, 2000, seed=4),
+             "N5": case_on_card(5, 2000, 2000, seed=5),
              "N256": case_on_card(256, 2000, 2000)}
     for name, args in cases.items():
         got = mk.match_top2_batched(*args)
@@ -316,7 +340,7 @@ def check_match(dev, rng):
         torch.cuda.empty_cache()  # the plain N = 256 run holds ~20 GB of temporaries
     sms = _lib.sm_count(dev.index)
     rows, plans = {}, {}
-    for name in ("N1", "N4", "N32", "N256"):
+    for name in ("N1", "N4", "N5", "N8", "N32", "N256"):
         q, t, v = cases[name]
         n, kq, kt = q.shape[0], q.shape[1], t.shape[1]
         slices, _ = mk.split_plan(n, kq, kt, sms)
@@ -333,6 +357,13 @@ def check_match(dev, rng):
     rows["N32"]["launch_ms"] = cuda_ms(lambda: mk.match_top2_batched(q32, t32, v32), iters=10)
     rows["N32"]["plain_ms"] = graph_ms(lambda: mk.match_top2_plain(q32, t32, v32),
                                        iters=2, replays=3)
+    # the online loop closure: N = 8 candidate scores, N = 5 verify pairs;
+    # N = 4 has no path (the plain time completes its row)
+    for name in ("N4", "N5", "N8"):
+        q_, t_, v_ = cases[name]
+        rows[name]["launch_ms"] = cuda_ms(lambda: mk.match_top2_batched(q_, t_, v_), iters=20)
+        rows[name]["plain_ms"] = graph_ms(lambda: mk.match_top2_plain(q_, t_, v_), iters=4,
+                                          replays=5)
     # N = 256: the loop path's candidate scores (32 frames x 8 candidates)
     q256, t256, v256 = cases["N256"]
     rows["N256"]["launch_ms"] = cuda_ms(lambda: mk.match_top2_batched(q256, t256, v256), iters=5)
@@ -340,6 +371,8 @@ def check_match(dev, rng):
                                        warmup=0, repeats=1)
     torch.cuda.empty_cache()
     log("kernels", f"match: bit-exact on {len(cases)} cases; plain N=1 {plain_ms:.4f} ms, "
+                   f"N=4 {rows['N4']['plain_ms']:.4f} ms, N=5 {rows['N5']['plain_ms']:.4f} ms, "
+                   f"N=8 {rows['N8']['plain_ms']:.4f} ms, "
                    f"N=32 {rows['N32']['plain_ms']:.4f} ms, N=256 {rows['N256']['plain_ms']:.4f} "
                    "ms (once); "
                    + "; ".join(f"{k} 2000x2000 kernel {r['ms']:.4f} ms (bound {r['bound_ms']:.5f} "
@@ -354,7 +387,12 @@ def check_match(dev, rng):
             dict(name="match_top2 N=32", path="chunked", **MATCH_COMMON, max_abs_err=0.0,
                  **{k: rows["N32"][k] for k in keys}),
             dict(name="match_top2 N=256 (loop candidate scores)", path="loop", role="query",
-                 **MATCH_COMMON, max_abs_err=0.0, **{k: rows["N256"][k] for k in keys})], \
+                 **MATCH_COMMON, max_abs_err=0.0, **{k: rows["N256"][k] for k in keys}),
+            dict(name="match_top2 N=8 (online loop candidate scores)", path="online_lc",
+                 role="query", **MATCH_COMMON, max_abs_err=0.0,
+                 **{k: rows["N8"][k] for k in keys}),
+            dict(name="match_top2 N=5 (online loop verify)", path="online_lc", role="verify",
+                 **MATCH_COMMON, max_abs_err=0.0, **{k: rows["N5"][k] for k in keys})], \
         {"match": rows, "match_plans": plans}
 
 
@@ -832,23 +870,15 @@ def profile_chunked(frames, imu, cfg, nchunks: int, label: str):
 # ------------------------------------------------------------------ loop
 def benchmark_config(cam, loop_closure: bool = True):
     """The accuracy benchmark's full-resolution configuration for
-    LOOP_FRAMES frames (benchmark_config(full_res=True, frames) of the JAX
-    package's eval/accuracy_benchmark.py, as it is: mapping into a
-    100,000-point map, fusion on for euroc_eval), loop closure on or off."""
-    from aria_slam_tpu_torch.config import (
-        LoopClosureConfig, MapperConfig, OrbConfig, PipelineConfig, PoseGraphConfig,
-        RansacConfig,
-    )
+    LOOP_FRAMES frames (the port's eval/accuracy_benchmark.benchmark_config,
+    as the JAX package's: mapping into a 100,000-point map, fusion on for
+    euroc_eval) at camera `cam`, loop closure on or off."""
+    import dataclasses
 
-    return PipelineConfig(
-        camera=cam, orb=OrbConfig(), ransac=RansacConfig(num_hypotheses=256),
-        loop=LoopClosureConfig(max_keyframes=512, min_frames_between=150, min_score=0.3,
-                               min_matches=40),
-        mapper=MapperConfig(max_points=100_000),
-        pose_graph=PoseGraphConfig(max_nodes=max(256, LOOP_FRAMES + 16),
-                                   max_edges=max(1024, 3 * LOOP_FRAMES),
-                                   lm_iterations=5, cg_iterations=32),
-        vo_backbone_scale=True, enable_loop_closure=loop_closure)
+    from aria_slam_tpu_torch.eval.accuracy_benchmark import benchmark_config as bench
+
+    return dataclasses.replace(bench(full_res=True, frames=LOOP_FRAMES), camera=cam,
+                               enable_loop_closure=loop_closure)
 
 
 def run_loop(frames, gt, imu, cam):
@@ -874,10 +904,16 @@ def run_loop(frames, gt, imu, cam):
                    torch.empty((vm, nf, 256), dtype=torch.int8, pin_memory=True),
                    torch.empty((vm, nf), dtype=torch.bool, pin_memory=True)]
 
+    in_verify = [False]  # the candidate scores launch the same wrapper
+
     def counted(fn, role):
         def call(*a, **kw):
             before = match_kernel.match_top2_batched.launches
-            out = fn(*a, **kw)
+            in_verify[0] = role == "verify"
+            try:
+                out = fn(*a, **kw)
+            finally:
+                in_verify[0] = False
             match_launches[role] += match_kernel.match_top2_batched.launches - before
             return out
         return call
@@ -886,8 +922,9 @@ def run_loop(frames, gt, imu, cam):
 
     def recorded(*a):
         out = wrapper(*a)
-        for host, x in zip(verify_args, a):
-            host.copy_(x, non_blocking=True)
+        if in_verify[0]:
+            for host, x in zip(verify_args, a):
+                host.copy_(x, non_blocking=True)
         return out
 
     gc.collect()
@@ -1023,16 +1060,16 @@ def adaptive_pngs(paths):
     return ms, filters.tolist(), enc_s
 
 
-def run_eval(cam):
+def run_eval(cam, tmp):
     """The eval phase: the port's generate() writes the full-resolution
     rotloop (LOOP_FRAMES frames, the loop phase's trajectory, 200 Hz IMU)
-    as an ASL directory, and the port's euroc_eval.run reads it at chunk
+    as an ASL directory under `tmp` (tmp/rotloop, libpng's row filters at
+    the end, for the online phase), and the port's euroc_eval.run reads it at chunk
     CHUNK in the accuracy benchmark's three variants (vo: fusion and loop
     closure off; vio: loop closure off; vio_lc: all on). Each variant runs
     with the kernels' counts set to 0 just before it and read just after.
     The EKF of vio_lc is timed once more on the other device."""
     import dataclasses
-    import tempfile
 
     from aria_slam_tpu_torch.eval import euroc_eval
     from aria_slam_tpu_torch.fusion import ekf
@@ -1049,96 +1086,95 @@ def run_eval(cam):
     gt = np.stack([synthetic_scene.trajectory(k / FPS, kind="rotloop", period=LOOP_PERIOD)[0]
                    for k in range(LOOP_FRAMES)])
     rec, launches = {}, {}
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
-        scene = f"{tmp}/rotloop"
+    scene = f"{tmp}/rotloop"
+    t0 = time.perf_counter()
+    synthetic_scene.generate(scene, num_frames=LOOP_FRAMES, fps=FPS, cam=cam, depth=4.0,
+                             traj="rotloop", period=LOOP_PERIOD)
+    gen_s = time.perf_counter() - t0
+    log("eval", f"generate(): {LOOP_FRAMES} rotloop frames {cam.width}x{cam.height}, "
+                f"rendered and written as PNG with the IMU and ground truth, in {gen_s:.1f} s")
+    paths = euroc.load(scene).image_paths
+    decode_alone = {"filter 0": decode_chunk_ms(paths)}
+    for name, vcfg in variants.items():
+        if name == "vio":
+            decode_alone["libpng's filters"], filters, enc_s = adaptive_pngs(paths)
+            log("eval", f"frames rewritten with libpng's row filters in {enc_s:.1f} s; rows "
+                        "None / Sub / Up / Average / Paeth: " + " / ".join(map(str, filters))
+                        + "; one chunk's decode alone (" + str(CHUNK + 1) + " PNGs, median "
+                        "of 3): " + "; ".join(f"{k}: " + ", ".join(
+                            f"{where} {ms:.1f} ms" for where, ms in v.items())
+                            for k, v in decode_alone.items()))
+            if not (filters[3] and filters[4]):
+                raise AssertionError("the rewritten frames hold no Average or Paeth rows")
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.launches = 0
         t0 = time.perf_counter()
-        synthetic_scene.generate(scene, num_frames=LOOP_FRAMES, fps=FPS, cam=cam, depth=4.0,
-                                 traj="rotloop", period=LOOP_PERIOD)
-        gen_s = time.perf_counter() - t0
-        log("eval", f"generate(): {LOOP_FRAMES} rotloop frames {cam.width}x{cam.height}, "
-                    f"rendered and written as PNG with the IMU and ground truth, in {gen_s:.1f} s")
-        paths = euroc.load(scene).image_paths
-        decode_alone = {"filter 0": decode_chunk_ms(paths)}
-        for name, vcfg in variants.items():
-            if name == "vio":
-                decode_alone["libpng's filters"], filters, enc_s = adaptive_pngs(paths)
-                log("eval", f"frames rewritten with libpng's row filters in {enc_s:.1f} s; rows "
-                            "None / Sub / Up / Average / Paeth: " + " / ".join(map(str, filters))
-                            + "; one chunk's decode alone (" + str(CHUNK + 1) + " PNGs, median "
-                            "of 3): " + "; ".join(f"{k}: " + ", ".join(
-                                f"{where} {ms:.1f} ms" for where, ms in v.items())
-                                for k, v in decode_alone.items()))
-                if not (filters[3] and filters[4]):
-                    raise AssertionError("the rewritten frames hold no Average or Paeth rows")
-            gc.collect()
-            torch.cuda.synchronize()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            for k in kernels:
-                k.launches = 0
-            t0 = time.perf_counter()
-            res = euroc_eval.run(scene, out_dir=f"{tmp}/{name}", config=vcfg, verbose=False,
-                                 chunk=CHUNK, keep_pipe=True)
-            wall_s = time.perf_counter() - t0
-            launches[name] = {k.__name__: k.launches for k in kernels}
-            peak_mb = torch.cuda.max_memory_allocated() / 2**20
-            pipe = res.pop("_pipe")
-            est = np.stack([T[:3, 3] for _, T in pipe.trajectory])
-            pairs = pipe.loop_pairs
-            true = [(i, j) for i, j in pairs if np.linalg.norm(gt[i] - gt[j]) < LOOP_TRUE_M]
-            precision = len(true) / max(len(pairs), 1)
-            ply = _ply_points(f"{tmp}/{name}/map.ply")
-            n_verified = res["stage_n"].get("loop_verify", 0)
-            rec[name] = dict(res, wall_s=wall_s, peak_mib=peak_mb, precision=precision,
-                             true_loops=len(true), ply_points=ply, loop_pairs=pairs)
-            fused = ", ".join(f"{k} {res[k]:.4f}" for k in (
-                "ate_fused_rmse_m", "ate_fused_noscale_rmse_m", "ate_fused_raw_rmse_m") if k in res)
-            log("eval", f"{name}: {res['frames']} frames in {wall_s:.1f} s; ATE Sim3 "
-                        f"{res['ate_rmse_m']:.4f} m, no-scale {res['ate_noscale_rmse_m']:.4f} m, "
-                        f"raw {res['ate_raw_rmse_m']:.4f} m; fused {fused or 'none (fusion off)'}"
-                        f"; umeyama_scale {res['umeyama_scale']:.4f}; rpe_rot "
-                        f"{res['rpe_rot_deg']:.4f} deg; loops {res['loops']} ({len(true)} true, "
-                        f"precision {precision:.3f}); map_points {res['map_points']} (map.ply "
-                        f"{ply}); steady_frame_ms {res['steady_frame_ms']:.2f}; avg_fps "
-                        f"{res['avg_fps']:.2f}; compile_wall_s {res['compile_wall_s']}; peak "
-                        f"memory {peak_mb:.1f} MiB; launches {launches[name]}; decode "
-                        f"{res['stage_ms']['decode']:.1f} ms a chunk on the worker against "
-                        f"device_chunk {res['stage_ms']['device_chunk']:.1f} ms, the main "
-                        f"thread's decode_wait {res['stage_ms']['decode_wait']:.1f} ms a chunk "
-                        f"(first {res['stage_ms_warm']['decode_wait']:.1f} ms); stage_ms (n): "
-                        + "; ".join(f"{k} {v} ({res['stage_n'][k]})"
-                                    for k, v in sorted(res["stage_ms"].items())))
-            want = {"corner_rank_maps": LOOP_CHUNKS, "extract_patches_levels": LOOP_CHUNKS,
-                    "match_top2_batched": (3 * LOOP_CHUNKS + n_verified if vcfg.enable_loop_closure
-                                           else 2 * LOOP_CHUNKS)}
-            if launches[name] != want:
-                raise AssertionError(f"eval {name} launch counts {launches[name]}, expected {want}")
-            if est.shape != gt.shape or not np.isfinite(est).all():
-                raise AssertionError(f"eval {name}: a wrong shape or a non-finite pose")
-            if ply != res["map_points"] or res["map_points"] <= 0:
-                raise AssertionError(f"eval {name}: map.ply holds {ply} points, map_points "
-                                     f"{res['map_points']}")
-            if vcfg.enable_fusion and not (
-                    res["ate_fused_rmse_m"] <= res["ate_rmse_m"] + 1e-3
-                    and res["ate_fused_raw_rmse_m"] <= res["ate_raw_rmse_m"] + 1e-3):
-                raise AssertionError(f"eval {name}: the fused track is worse than the chain")
-        lc = rec["vio_lc"]
-        if not lc["loops"] or lc["precision"] < 0.9:
-            raise AssertionError(f"eval vio_lc: loops {lc['loop_pairs']}, precision "
-                                 f"{lc['precision']:.3f}")
-        if not lc["ate_rmse_m"] <= 1.15 * rec["vio"]["ate_rmse_m"] + 0.02:
-            raise AssertionError(f"eval: loop closure harms, ATE {lc['ate_rmse_m']} m with, "
-                                 f"{rec['vio']['ate_rmse_m']} m without")
+        res = euroc_eval.run(scene, out_dir=f"{tmp}/{name}", config=vcfg, verbose=False,
+                             chunk=CHUNK, keep_pipe=True)
+        wall_s = time.perf_counter() - t0
+        launches[name] = {k.__name__: k.launches for k in kernels}
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        pipe = res.pop("_pipe")
+        est = np.stack([T[:3, 3] for _, T in pipe.trajectory])
+        pairs = pipe.loop_pairs
+        true = [(i, j) for i, j in pairs if np.linalg.norm(gt[i] - gt[j]) < LOOP_TRUE_M]
+        precision = len(true) / max(len(pairs), 1)
+        ply = _ply_points(f"{tmp}/{name}/map.ply")
+        n_verified = res["stage_n"].get("loop_verify", 0)
+        rec[name] = dict(res, wall_s=wall_s, peak_mib=peak_mb, precision=precision,
+                         true_loops=len(true), ply_points=ply, loop_pairs=pairs)
+        fused = ", ".join(f"{k} {res[k]:.4f}" for k in (
+            "ate_fused_rmse_m", "ate_fused_noscale_rmse_m", "ate_fused_raw_rmse_m") if k in res)
+        log("eval", f"{name}: {res['frames']} frames in {wall_s:.1f} s; ATE Sim3 "
+                    f"{res['ate_rmse_m']:.4f} m, no-scale {res['ate_noscale_rmse_m']:.4f} m, "
+                    f"raw {res['ate_raw_rmse_m']:.4f} m; fused {fused or 'none (fusion off)'}"
+                    f"; umeyama_scale {res['umeyama_scale']:.4f}; rpe_rot "
+                    f"{res['rpe_rot_deg']:.4f} deg; loops {res['loops']} ({len(true)} true, "
+                    f"precision {precision:.3f}); map_points {res['map_points']} (map.ply "
+                    f"{ply}); steady_frame_ms {res['steady_frame_ms']:.2f}; avg_fps "
+                    f"{res['avg_fps']:.2f}; compile_wall_s {res['compile_wall_s']}; peak "
+                    f"memory {peak_mb:.1f} MiB; launches {launches[name]}; decode "
+                    f"{res['stage_ms']['decode']:.1f} ms a chunk on the worker against "
+                    f"device_chunk {res['stage_ms']['device_chunk']:.1f} ms, the main "
+                    f"thread's decode_wait {res['stage_ms']['decode_wait']:.1f} ms a chunk "
+                    f"(first {res['stage_ms_warm']['decode_wait']:.1f} ms); stage_ms (n): "
+                    + "; ".join(f"{k} {v} ({res['stage_n'][k]})"
+                                for k, v in sorted(res["stage_ms"].items())))
+        want = {"corner_rank_maps": LOOP_CHUNKS, "extract_patches_levels": LOOP_CHUNKS,
+                "match_top2_batched": (3 * LOOP_CHUNKS + n_verified if vcfg.enable_loop_closure
+                                       else 2 * LOOP_CHUNKS)}
+        if launches[name] != want:
+            raise AssertionError(f"eval {name} launch counts {launches[name]}, expected {want}")
+        if est.shape != gt.shape or not np.isfinite(est).all():
+            raise AssertionError(f"eval {name}: a wrong shape or a non-finite pose")
+        if ply != res["map_points"] or res["map_points"] <= 0:
+            raise AssertionError(f"eval {name}: map.ply holds {ply} points, map_points "
+                                 f"{res['map_points']}")
+        if vcfg.enable_fusion and not (
+                res["ate_fused_rmse_m"] <= res["ate_rmse_m"] + 1e-3
+                and res["ate_fused_raw_rmse_m"] <= res["ate_raw_rmse_m"] + 1e-3):
+            raise AssertionError(f"eval {name}: the fused track is worse than the chain")
+    lc = rec["vio_lc"]
+    if not lc["loops"] or lc["precision"] < 0.9:
+        raise AssertionError(f"eval vio_lc: loops {lc['loop_pairs']}, precision "
+                             f"{lc['precision']:.3f}")
+    if not lc["ate_rmse_m"] <= 1.15 * rec["vio"]["ate_rmse_m"] + 0.02:
+        raise AssertionError(f"eval: loop closure harms, ATE {lc['ate_rmse_m']} m with, "
+                             f"{rec['vio']['ate_rmse_m']} m without")
 
-        # the EKF once more, on the device the evaluator does not use for it
-        other = "cuda" if euroc_eval.EKF_DEVICE == "cpu" else "cpu"
-        timer = StageTimer(device="cuda")
-        data = euroc.load(scene)
-        fused_other, _ = ekf.run_sequence(*euroc_eval.ekf_inputs(data, pipe.trajectory), cfg.ekf,
-                                          smooth=True, device=other, timer=timer)
-        fused_chosen = euroc_eval.fuse(data, pipe.trajectory, cfg)
-        ekf_other = {k: v["mean_ms"] for k, v in timer.summary().items()}
-        diff = float(np.abs(fused_other.cpu().numpy() - fused_chosen).max())
+    # the EKF once more, on the device the evaluator does not use for it
+    other = "cuda" if euroc_eval.EKF_DEVICE == "cpu" else "cpu"
+    timer = StageTimer(device="cuda")
+    data = euroc.load(scene)
+    fused_other, _ = ekf.run_sequence(*euroc_eval.ekf_inputs(data, pipe.trajectory), cfg.ekf,
+                                      smooth=True, device=other, timer=timer)
+    fused_chosen = euroc_eval.fuse(data, pipe.trajectory, cfg)
+    ekf_other = {k: v["mean_ms"] for k, v in timer.summary().items()}
+    diff = float(np.abs(fused_other.cpu().numpy() - fused_chosen).max())
     chosen = {k: lc["stage_ms"][k] for k in ("ekf_forward", "ekf_smoother")}
     n_events = len(data.imu_ts) + LOOP_FRAMES
     log("eval", f"EKF over about {n_events} events on {euroc_eval.EKF_DEVICE} (the evaluator's "
@@ -1151,6 +1187,228 @@ def run_eval(cam):
                           png_row_filters=filters, ekf_chosen_ms=chosen,
                           ekf_other_device=other, ekf_other_ms=ekf_other,
                           ekf_route_max_diff_m=diff)
+
+
+# ---------------------------------------------------------------- online
+ONLINE_BENCH_FRAMES = 24  # online_benchmark's frames a mode (4 of them warm-up)
+LAZY_DEPTH = 3
+
+
+def _timed(owner, name: str, times: list):
+    """mock.patch.object(owner, name) with a wrapper that appends the
+    call's ms, ended by a synchronise, to `times`."""
+    fn = getattr(owner, name)
+
+    def call(*a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return mock.patch.object(owner, name, call)
+
+
+def ekf_route_ms(calls, cfg_ekf) -> dict:
+    """The online EKF's frame steps of a run (`calls`: the arguments
+    ekf.frame_step received, host tensors) replayed in order on the host
+    and on the card -> ms a frame on each, and the largest gap between
+    the two routes' final positions."""
+    from aria_slam_tpu_torch.fusion import ekf
+
+    out, final = {}, {}
+    for dev in ("cpu", "cuda"):
+        state = ekf.init_state(device=dev)
+        consts = ekf._Consts(cfg_ekf, torch.float32, torch.device(dev))
+        args = [[x.to(dev) if isinstance(x, torch.Tensor) else x for x in a[1:]] for a in calls]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a in args:
+            state = ekf.frame_step(state, *a[:8], cfg_ekf, consts)
+        torch.cuda.synchronize()
+        out[dev] = (time.perf_counter() - t0) * 1e3 / len(calls)
+        final[dev] = state.pos.cpu().numpy()
+    return dict(ms_a_frame=out, max_diff_m=float(np.abs(final["cpu"] - final["cuda"]).max()))
+
+
+def run_online(cam, tmp, gt, chunked_lc):
+    """The online phase: the port's default online entry point on the eval
+    phase's rotloop directory (libpng-filtered PNGs). (1) euroc_eval.run
+    with chunk=0 in the accuracy benchmark's vio_lc configuration (fusion,
+    loop closure, mapping), with the kernels' counts set to 0 just before
+    it and read just after (the match kernel's also by role: inside
+    loop_closure._full_scores, the N = 8 candidate scores, and inside
+    verify_candidate, the N = 5 verify); frame steps timed with and
+    without a verify, each loop's optimisation, finalize, and the EKF's
+    frame steps replayed on both routes. (2) euroc_eval.run with
+    PipelineConfig() as it is (512-keyframe DB, 200,000-point map,
+    4096-node graph) on the first 40 frames. (3) online_benchmark.run_mode
+    in sync and in lazy mode on ONLINE_BENCH_FRAMES full-width frames."""
+    from aria_slam_tpu_torch.backend import loop_closure
+    from aria_slam_tpu_torch.config import PipelineConfig
+    from aria_slam_tpu_torch.eval import euroc_eval, metrics, online_benchmark
+    from aria_slam_tpu_torch.fusion import ekf
+    from aria_slam_tpu_torch.ops.cuda import corner_kernel, match_kernel, patch_kernel
+    from aria_slam_tpu_torch.pipeline.slam_pipeline import SlamPipeline
+
+    kernels = (corner_kernel.corner_rank_maps, patch_kernel.extract_patches_levels,
+               match_kernel.match_top2_batched)
+    scene = f"{tmp}/rotloop"
+    cfg = benchmark_config(cam)
+    match_launches = {"query": 0, "verify": 0}
+
+    def counted(fn, role):
+        def call(*a, **kw):
+            before = match_kernel.match_top2_batched.launches
+            out = fn(*a, **kw)
+            match_launches[role] += match_kernel.match_top2_batched.launches - before
+            return out
+        return call
+
+    step_ms, verify_flags, loop_ms, fin_ms, ekf_calls, published = [], [], [], [], [], []
+    process_frame = SlamPipeline.process_frame
+
+    def frame(self, *a):
+        before = match_launches["verify"]
+        t0 = time.perf_counter()
+        pose = process_frame(self, *a)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        verify_flags.append(match_launches["verify"] > before)
+        published.append(pose[:3, 3])
+        return pose
+
+    frame_step = ekf.frame_step
+
+    def recorded_ekf(*a):
+        ekf_calls.append(a)
+        return frame_step(*a)
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as patches:
+        for owner, name, fn in (
+                (loop_closure, "_full_scores", counted(loop_closure._full_scores, "query")),
+                (loop_closure, "verify_candidate",
+                 counted(loop_closure.verify_candidate, "verify")),
+                (SlamPipeline, "process_frame", frame), (ekf, "frame_step", recorded_ekf)):
+            patches.enter_context(mock.patch.object(owner, name, fn))
+        patches.enter_context(_timed(SlamPipeline, "_handle_loop", loop_ms))
+        patches.enter_context(_timed(SlamPipeline, "finalize", fin_ms))
+        res = euroc_eval.run(scene, out_dir=f"{tmp}/online", config=cfg, verbose=False,
+                             chunk=0, keep_pipe=True)
+    wall_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    pipe = res.pop("_pipe")
+    est = np.stack([T[:3, 3] for _, T in pipe.trajectory])
+    pairs = pipe.loop_pairs
+    true = [(i, j) for i, j in pairs if np.linalg.norm(gt[i] - gt[j]) < LOOP_TRUE_M]
+    precision = len(true) / max(len(pairs), 1)
+    ply = _ply_points(f"{tmp}/online/map.ply")
+    steps = np.array(step_ms[1:])
+    ver = np.array(verify_flags[1:])
+    n = len(step_ms)
+    # the chain as each frame published it (what the EKF consumed; the
+    # final chain also has the later loops' and finalize's corrections)
+    ate_published = metrics.ate_rmse(np.stack(published), gt)
+    route = ekf_route_ms(ekf_calls, cfg.ekf)
+    rec = dict(res, wall_s=wall_s, peak_mib=peak_mb, precision=precision, true_loops=len(true),
+               loop_pairs=pairs, ply_points=ply, launches=launches,
+               match_launches=dict(match_launches),
+               steady_step_ms_median=float(np.median(steps)),
+               steady_step_ms_p90=float(np.percentile(steps, 90)),
+               step_ms_with_verify=float(np.median(steps[ver])) if ver.any() else None,
+               step_ms_without_verify=float(np.median(steps[~ver])),
+               frames_verified=int(ver.sum()), loop_optimize_ms=loop_ms,
+               ate_published_m=ate_published,
+               finalize_ms=fin_ms[0], ekf_route=route)
+    fused = ", ".join(f"{k} {res[k]:.4f}" for k in (
+        "ate_fused_rmse_m", "ate_fused_noscale_rmse_m", "ate_fused_raw_rmse_m"))
+    log("online", f"euroc_eval.run chunk=0, vio_lc configuration: {res['frames']} frames in "
+                  f"{wall_s:.1f} s; ATE Sim3 {res['ate_rmse_m']:.4f} m, no-scale "
+                  f"{res['ate_noscale_rmse_m']:.4f} m, raw {res['ate_raw_rmse_m']:.4f} m, the "
+                  f"chain as published frame by frame Sim3 {ate_published:.4f} m; fused "
+                  f"{fused}; loops {len(pairs)} ({len(true)} true within {LOOP_TRUE_M} m, "
+                  f"precision {precision:.3f}), frames {sorted({j for _, j in pairs})}; "
+                  f"map_points {res['map_points']} (map.ply {ply}); steady_frame_ms "
+                  f"{res['steady_frame_ms']:.2f}; frame step ms median {np.median(steps):.2f} "
+                  f"p90 {np.percentile(steps, 90):.2f}, without a verify "
+                  f"{rec['step_ms_without_verify']:.2f}, with one "
+                  f"{rec['step_ms_with_verify'] or float('nan'):.2f} ({int(ver.sum())} frames); "
+                  f"loop_optimize ms "
+                  f"{', '.join(f'{m:.1f}' for m in loop_ms) or 'none'}; finalize "
+                  f"{fin_ms[0]:.1f} ms; EKF ms a frame on the host "
+                  f"{route['ms_a_frame']['cpu']:.2f} (the pipeline's route), on the card "
+                  f"{route['ms_a_frame']['cuda']:.2f}, positions within "
+                  f"{route['max_diff_m']:.2e} m; launches {launches} ({', '.join(f'{k} {v / n:.2f}' for k, v in launches.items())} a frame), "
+                  f"match in _full_scores / verify_candidate {match_launches}; peak memory "
+                  f"{peak_mb:.1f} MiB; stage_ms {res['stage_ms']}. Direction only: the chunked "
+                  f"vio_lc of the eval phase, Sim3 {chunked_lc['ate_rmse_m']:.4f} m, fused "
+                  f"{chunked_lc['ate_fused_rmse_m']:.4f} m, {chunked_lc['loops']} loops")
+    want = {"corner_rank_maps": n, "extract_patches_levels": n,
+            "match_top2_batched": 2 * n + match_launches["verify"]}
+    if launches != want or match_launches["query"] != n:
+        raise AssertionError(f"online launch counts {launches}, match by role {match_launches}; "
+                             f"expected {want} with {n} query launches")
+    if est.shape != gt.shape or not np.isfinite(est).all():
+        raise AssertionError("online: a wrong shape or a non-finite pose")
+    if not pairs or precision < 0.9:
+        raise AssertionError(f"online loops {pairs}: {len(true)} true, precision {precision:.3f}")
+    # tests/test_pipeline.py's no-harm gate for the EKF, against the chain
+    # it consumed: the published chain. The final chain also carries the
+    # corrections that later loops and finalize made to earlier frames,
+    # which a causal filter's past cannot have (printed beside it)
+    if not res["ate_fused_rmse_m"] <= 1.1 * ate_published + 0.02:
+        raise AssertionError(f"online fused Sim3 ATE {res['ate_fused_rmse_m']} m against the "
+                             f"published chain's {ate_published} m")
+    if ply != res["map_points"] or res["map_points"] <= 0:
+        raise AssertionError(f"online map.ply holds {ply} points, map_points "
+                             f"{res['map_points']}")
+    if not route["max_diff_m"] < 1e-3:
+        raise AssertionError(f"the EKF's routes disagree by {route['max_diff_m']} m")
+
+    # (2) the default configuration as it is
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    dres = euroc_eval.run(scene, out_dir=f"{tmp}/online_default", max_frames=40, verbose=False,
+                          chunk=0, keep_pipe=True)
+    dwall = time.perf_counter() - t0
+    dpipe = dres.pop("_pipe")
+    dpeak = torch.cuda.max_memory_allocated() / 2**20
+    dest = np.stack([T[:3, 3] for _, T in dpipe.trajectory])
+    sizes = dict(keyframes=dpipe.state.db.desc.shape[0], map=dpipe.state.map_state.points.shape[0],
+                 nodes=dpipe.state.graph.node_pose.shape[0])
+    log("online", f"PipelineConfig() as it is ({sizes}): 40 frames in {dwall:.1f} s, "
+                  f"steady_frame_ms {dres['steady_frame_ms']:.2f}, Sim3 ATE "
+                  f"{dres['ate_rmse_m']:.4f} m, fused {dres['ate_fused_rmse_m']:.4f} m, map "
+                  f"{dres['map_points']} points, loops {dres['loops']}; peak memory {dpeak:.1f} MiB")
+    if dest.shape != (40, 3) or not np.isfinite(dest).all():
+        raise AssertionError("PipelineConfig() online run: a wrong shape or a non-finite pose")
+    rec["default_config"] = dict(dres, wall_s=dwall, peak_mib=dpeak, sizes=sizes)
+
+    # (3) online_benchmark: sync against lazy
+    bcfg = online_benchmark.bench_config(small=False)
+    frames = online_benchmark.make_frames(bcfg, ONLINE_BENCH_FRAMES)
+    sync_ms, sync = online_benchmark.run_mode(bcfg, frames, 0, keep_pipe=True)
+    lazy_ms, lazy = online_benchmark.run_mode(bcfg, frames, LAZY_DEPTH, keep_pipe=True)
+    gap = float(np.abs(np.stack([T for _, T in sync.trajectory])[:, :3, 3]
+                       - np.stack([T for _, T in lazy.trajectory])[:, :3, 3]).max())
+    log("online", f"online_benchmark.run_mode, {ONLINE_BENCH_FRAMES} frames (4 warm-up) at "
+                  f"{cam.width}x{cam.height}, default configuration: sync {sync_ms:.2f} ms a "
+                  f"frame, lazy (depth {LAZY_DEPTH}) {lazy_ms:.2f} ms a frame, speedup "
+                  f"{sync_ms / lazy_ms:.3f}; trajectories within {gap:.2e} m")
+    if not gap <= 1e-5:
+        raise AssertionError(f"lazy and sync trajectories differ by {gap} m")
+    rec["online_benchmark"] = dict(sync_ms=sync_ms, lazy_ms=lazy_ms, lazy_depth=LAZY_DEPTH,
+                                   frames=ONLINE_BENCH_FRAMES, max_gap_m=gap)
+    return launches, rec
 
 
 def main() -> int:
@@ -1210,9 +1468,14 @@ def main() -> int:
     launches["loop"], loop_rec, verify_args = run_loop(loop_frames, loop_gt, loop_imu, cam)
     records.append(check_verify_match(*(x.to(dev) for x in verify_args)))
     del verify_args
-    launches["eval"], eval_rec = run_eval(cam)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        launches["eval"], eval_rec = run_eval(cam, tmp)
+        # 8. the online path with every feature on
+        launches["online_lc"], online_rec = run_online(cam, tmp, loop_gt,
+                                                       eval_rec["variants"]["vio_lc"])
+    by_role = {"loop": loop_rec["match_launches"], "online_lc": online_rec["match_launches"]}
     for r in records:
-        r["launches"] = (loop_rec["match_launches"][r["role"]] if r["path"] == "loop"
+        r["launches"] = (by_role[r["path"]][r["role"]] if "role" in r
                          else launches[r["path"]][r["wrapper"]])
         if r["launches"] < 1:
             raise AssertionError(f"{r['name']} was not launched on the {r['path']} path")
@@ -1227,7 +1490,7 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump({"device": name, "nvidia_smi": smi, "kernels": records,
                        "slice": slice_rec, "chunked": chunked_rec, "loop": loop_rec,
-                       "eval": eval_rec,
+                       "eval": eval_rec, "online": online_rec,
                        "build_s": secs, "ptxas": ptxas, "seconds": time.perf_counter() - t_start,
                        **extra}, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -180,16 +180,13 @@ def test_pipeline_without_device_needs_cuda(monkeypatch):
         SlamPipeline(TORCH_SMALL_CFG)
 
 
-@pytest.mark.parametrize("flag", ["enable_fusion", "enable_loop_closure", "enable_mapping",
-                                  "enable_detection", "enable_dynamic_filtering"])
+@pytest.mark.parametrize("flag", ["enable_detection", "enable_dynamic_filtering"])
 def test_unported_features_raise(flag):
     from aria_slam_tpu_torch.pipeline.slam_pipeline import SlamPipeline
 
     cfg = dataclasses.replace(TORCH_SMALL_CFG, **{flag: True})
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         SlamPipeline(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="lazy"):
-        SlamPipeline(TORCH_SMALL_CFG, device="cpu", lazy_depth=2)
 
 
 def test_kernel_wrappers_take_plain_path_only_on_cpu():

@@ -241,7 +241,7 @@ def test_prefilter_slots_and_tie_order_match_jax():
 
 
 def test_lc_query_scores_exactly_equal(run):
-    """lc_query (prefilter and scores_chunk, one kNN-2 over the C x 8
+    """lc_query (prefilter and exact scores, one kNN-2 over the C x 8
     candidate pairs) against the JAX run's own jitted program on the
     same DB and chunk: slots exactly, sims within 1e-6, scores exactly
     equal."""

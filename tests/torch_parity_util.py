@@ -41,6 +41,29 @@ def small_config(module, **overrides):
 JAX_SMALL_CFG = small_config(jcfg)
 TORCH_SMALL_CFG = small_config(tcfg)
 
+# The online slice's scene (tests/test_torch_online.py and
+# tests/test_torch_drivers.py): the sweep of tests/test_online_pipelined.py
+# (2 s period), rendered at 10.2 fps so that no revisit is exact: at a
+# zero-baseline revisit the online verification's cheirality gate (no
+# rotation-only rescue) is decided by float32 rounding, in either package.
+# Frames 20-23 revisit frames 0-3 from 0.16-0.30 m away.
+ONLINE_SCENE = dict(num_frames=24, fps=10.2, period=2.0, depth=4.0)
+ONLINE_SEED = 2  # both packages take the same RANSAC branch at every pair
+
+
+def online_config(module, **overrides):
+    """The small configuration with every feature of the online step on:
+    fusion, mapping and loop closure (tests/test_online_pipelined.py's
+    loop gates and a 32-slot ring)."""
+    kw = dict(enable_loop_closure=True, enable_mapping=True, enable_fusion=True,
+              loop=module.LoopClosureConfig(max_keyframes=32, min_frames_between=8,
+                                            min_score=0.2, min_matches=25),
+              mapper=module.MapperConfig(max_points=5000),
+              pose_graph=module.PoseGraphConfig(max_nodes=64, max_edges=128, lm_iterations=5,
+                                                cg_iterations=24, final_lm_iterations=10))
+    kw.update(overrides)
+    return small_config(module, **kw)
+
 
 class JaxKeySampler:
     """The JAX package's draws for one estimate_relative_pose call: the
@@ -60,15 +83,24 @@ class JaxKeySampler:
 
 class JaxChainSampler(JaxKeySampler):
     """The JAX pipeline's key chain: every frame step splits the carried
-    key into (key, k_ransac, k_loop) and RANSAC draws from k_ransac."""
+    key into (key, k_ransac, k_loop), RANSAC draws from k_ransac, and the
+    loop verification of candidate i (stages "loop_essential" /
+    "loop_homography", the candidates on the leading axis) from
+    split(k_loop, top_k)[i]."""
 
     def __init__(self, key):
         super().__init__(None)
         self.chain = key
+        self.k_loop = None
+        self.loop = None
 
     def __call__(self, valid, num_hypotheses, sample_size, stage):
         if stage == "essential":
-            self.chain, self.key, _ = jax.random.split(self.chain, 3)
+            self.chain, self.key, self.k_loop = jax.random.split(self.chain, 3)
+        elif stage == "loop_essential":
+            self.loop = JaxPairsSampler(self.k_loop, valid.shape[0], 0)
+        if stage.startswith("loop_"):
+            return self.loop(valid, num_hypotheses, sample_size, stage.removeprefix("loop_"))
         return super().__call__(valid, num_hypotheses, sample_size, stage)
 
 
