@@ -29,6 +29,7 @@ from aria_slam_tpu_torch.core import lie
 from aria_slam_tpu_torch.core.types import Features, KeyframeDB, _TensorTree
 from aria_slam_tpu_torch.ops import epipolar
 from aria_slam_tpu_torch.ops.match import BIG, match_top2_batched, ratio_gate
+from aria_slam_tpu_torch.ops.topk import top_k_stable
 
 PREFILTER_K = 8  # candidates promoted from the histogram ranking to full matching
 
@@ -54,14 +55,6 @@ def no_loop(device) -> LoopResult:
         num_inliers=torch.tensor(0, dtype=torch.int32, device=device),
         T_rel=torch.eye(4, device=device),
         t_weight=torch.tensor(0.0, device=device))
-
-
-def top_k_stable(x: torch.Tensor, k: int):
-    """(values, indices) of the k largest entries along the last axis,
-    the lower index first among equal values (jax.lax.top_k's order;
-    torch.topk promises none)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
 
 
 def _gated_candidates(db: KeyframeDB, hist_q, frame_id, cfg: LoopClosureConfig, k: int):

@@ -1,5 +1,4 @@
-"""Carry state over from the JAX package (the counterpart of carrying
-weights; this path has no learned weights).
+"""Carry state and weights over from the JAX package.
 
 Turns the JAX package's `Features`, `PoseGraph`, `KeyframeDB`,
 `MapState`, `EkfState` and online `FrameState`, given as numpy pytrees
@@ -9,8 +8,9 @@ given device, so a port step can start from the exact carry a JAX step
 produced. `chunked_state_from_numpy` does the same for the chunked
 evaluator (pose graph, keyframe DB, map, scale carry, trajectory), from
 the arrays of the JAX `ChunkedSlam.snapshot` file, through the reader
-of `ChunkedSlam.restore`. Fields are read by name; nothing of JAX is
-imported.
+of `ChunkedSlam.restore`. `yolo_from_flax` loads the JAX detector's
+flax variables into the port's `Yolo` (and `yolo_to_flax` writes them
+back). Fields are read by name; nothing of JAX is imported.
 """
 
 from __future__ import annotations
@@ -81,3 +81,65 @@ def chunked_state_from_numpy(slam, state) -> None:
     from aria_slam_tpu_torch.eval.chunked import load_state
 
     load_state(slam, state)
+
+
+def _flatten(tree, prefix: str = "") -> dict:
+    """A nested mapping as {"a/b/c": leaf}; a flat one passes through."""
+    flat = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            flat.update(_flatten(v, f"{prefix}{k}/"))
+        else:
+            flat[f"{prefix}{k}"] = v
+    return flat
+
+
+def _flax_path(name: str) -> str:
+    """A `Yolo` state_dict key -> its flax variable path: batch norm's
+    running statistics live in the `batch_stats` collection, every other
+    tensor in `params`."""
+    collection = "batch_stats" if name.endswith((".mean", ".var")) else "params"
+    return collection + "/" + name.replace(".", "/")
+
+
+def _is_kernel(name: str) -> bool:
+    return name.endswith(".kernel")
+
+
+def yolo_from_flax(variables, model):
+    """Load the JAX detector's variables into the port's `Yolo` `model`
+    and return it. `variables`: the flax tree ({"params": ...,
+    "batch_stats": ...}) or its flat "/"-joined form (an `np.load` of the
+    JAX yolo.save_weights file), leaves as numpy arrays. Conv kernels go
+    from (kh, kw, in, out) to (out, in, kh, kw). Every variable must be
+    consumed exactly once: a missing one raises KeyError, an unused one
+    or a shape mismatch ValueError."""
+    flat = _flatten(dict(variables))
+    state = {}
+    for name, ref in model.state_dict().items():
+        path = _flax_path(name)
+        if path not in flat:
+            raise KeyError(f"detector weights miss {path} (for {name})")
+        v = np.asarray(flat.pop(path), np.float32)
+        if _is_kernel(name):
+            v = v.transpose(3, 2, 0, 1)
+        if tuple(v.shape) != tuple(ref.shape):
+            raise ValueError(f"shape mismatch at {path}: {tuple(v.shape)} against the "
+                             f"model's {tuple(ref.shape)}")
+        state[name] = torch.from_numpy(np.ascontiguousarray(v))
+    if flat:
+        raise ValueError(f"unused detector weights: {sorted(flat)[:8]}"
+                         f"{' ...' if len(flat) > 8 else ''}")
+    model.load_state_dict(state)
+    return model
+
+
+def yolo_to_flax(model) -> dict:
+    """The port's `Yolo` weights as the JAX package's flat variables
+    ({"params/...": array, "batch_stats/...": array}), the inverse of
+    yolo_from_flax."""
+    out = {}
+    for name, v in model.state_dict().items():
+        a = v.detach().float().cpu().numpy()
+        out[_flax_path(name)] = a.transpose(2, 3, 1, 0) if _is_kernel(name) else a
+    return out

@@ -2,8 +2,7 @@
 
 Capacity-padded fixed-shape tensors with validity masks, exactly as the
 JAX package lays them out, so the tests compare like with like and
-convert.py can carry a JAX carry over field for field. `Detections`
-belongs to a feature the port does not run yet (see ROADMAP.md queue 1).
+convert.py can carry a JAX carry over field for field.
 """
 
 from __future__ import annotations
@@ -72,6 +71,17 @@ class PoseDelta(_TensorTree):
     num_inliers: torch.Tensor  # () int32
     inlier_mask: torch.Tensor  # (K,) bool over the match slots
     success: torch.Tensor      # () bool
+
+
+@dataclasses.dataclass
+class Detections(_TensorTree):
+    """Object-detector output, padded to max_detections (leading batch
+    axes allowed). Boxes are (x1, y1, x2, y2) in input-image pixels."""
+
+    boxes: torch.Tensor    # (D, 4) float32
+    scores: torch.Tensor   # (D,) float32
+    classes: torch.Tensor  # (D,) int32
+    valid: torch.Tensor    # (D,) bool
 
 
 @dataclasses.dataclass

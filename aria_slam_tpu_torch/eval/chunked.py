@@ -19,8 +19,14 @@ optimisation. The state commit triangulates the chunk's lag pairs
 (i - lag, i) from the chunk-BA-refined chain into the padded map
 (mapping/mapper.py). `snapshot` / `restore` keep the whole evaluator in
 one npz with the JAX package's key names (`load_state` reads one).
-Detection is not ported yet: asking for it raises NotImplementedError
-naming the ROADMAP.md item that will port it.
+
+With enable_detection and enable_dynamic_filtering the front end runs
+the detector over all C+1 frames in one forward pass (no NMS: the filter
+only tests containment) and drops the features inside a box of a
+dynamic class from every consumer: both endpoints of the consecutive and
+the lag pairs, the keyframe DB's descriptors and histograms, and the
+loose track tier of chunk BA. Each endpoint is tested against its own
+frame's boxes.
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ from aria_slam_tpu_torch.backend import chunk_ba, keyframe_db, loop_closure, pos
 from aria_slam_tpu_torch.config import PipelineConfig
 from aria_slam_tpu_torch.core.types import Features, KeyframeDB, MapState, PoseGraph
 from aria_slam_tpu_torch.mapping import export, mapper
-from aria_slam_tpu_torch.ops import epipolar, match as match_ops, orb
+from aria_slam_tpu_torch.ops import boxes as box_ops, epipolar, match as match_ops, orb
 from aria_slam_tpu_torch.ops.undistort import undistort_points
 from aria_slam_tpu_torch.pipeline.slam_pipeline import fetch_many, resolve_device
 
@@ -59,11 +65,6 @@ VIS_SCALE_MIN_PAIRS = 4
 BA_PIN_GAIN = 0.5
 BA_PIN_CLAMP = (0.5, 2.0)
 BA_PIN_MIN_LANDMARKS = 50.0
-
-# flag -> the ROADMAP.md queue-1 item that ports it
-_UNPORTED = {
-    "enable_detection": "queue 1 item 8 (detector)",
-}
 
 # per-pair statistics process_chunk reads on the host, fetched together
 _FETCH_KEYS = ("R", "t", "ok", "pins", "ratios", "rcounts",
@@ -95,7 +96,7 @@ def extract(frames: torch.Tensor, cfg: PipelineConfig) -> Features:
 
 
 def pairs(feats: Features, zlast, mlast, sampler, gyro_R, gyro_ok,
-          cfg: PipelineConfig, lag: int) -> dict:
+          cfg: PipelineConfig, lag: int, dyn_all=None) -> dict:
     """The chunk's pair geometry from its C+1 frames of features.
 
     Consecutive pairs are matched once with two ratio gates (strict for
@@ -105,18 +106,24 @@ def pairs(feats: Features, zlast, mlast, sampler, gyro_R, gyro_ok,
     depth pins, the pair-to-pair scale ratios through the shared frame
     and the track links. zlast / mlast: the previous chunk's last-frame
     unit depths and mask. gyro_R (C, 3, 3) / gyro_ok (C,): per-pair
-    rotation priors. Returns the reference front end's `out` dict."""
+    rotation priors. dyn_all (C+1, N) bool: the features inside a dynamic
+    object's box, frame by frame (none when None). Returns the reference
+    front end's `out` dict."""
     dev = feats.xy.device
     K = torch.as_tensor(cfg.camera.K, device=dev)
     nframes, nf = feats.valid.shape
     c = nframes - 1
     prev = feats.map(lambda x: x[:-1])
     cur = feats.map(lambda x: x[1:])
+    if dyn_all is None:
+        dyn_all = torch.zeros_like(feats.valid)
+    dyn = dyn_all[1:]  # the pairs' current frames 1..C
     # one Hamming pass, two gates
     best2, second2, bidx2 = match_ops.match_batched_raw(cur, prev)
     tidx = bidx2.long()
     strict = match_ops.ratio_gate(cur.valid, best2, second2, cfg.matcher.ratio)
-    prev_ok = torch.take_along_dim(prev.valid, tidx, 1)
+    # a match with either endpoint in its own frame's dynamic box is out
+    prev_ok = torch.take_along_dim(prev.valid & ~dyn_all[:-1], tidx, 1) & ~dyn
     xy_prev = torch.take_along_dim(prev.xy, tidx[..., None], 1)
     valid = strict & prev_ok
 
@@ -130,7 +137,8 @@ def pairs(feats: Features, zlast, mlast, sampler, gyro_R, gyro_ok,
     ml = match_ops.match_batched(lcur, lprev, cfg.matcher.ratio)
     lidx = ml.train_idx.long()
     uvl_prev = torch.take_along_dim(lprev.xy, lidx[..., None], 1)
-    lvalid = ml.valid & torch.take_along_dim(lprev.valid, lidx, 1)
+    lvalid = (ml.valid & torch.take_along_dim(lprev.valid & ~dyn_all[:-lag], lidx, 1)
+              & ~dyn_all[lag:])
 
     with_lag = ((cfg.pose_graph.backbone_weight > 0 or cfg.vo_backbone_scale)
                 and cfg.vo_scale_mode != "unit")
@@ -181,14 +189,19 @@ def pairs(feats: Features, zlast, mlast, sampler, gyro_R, gyro_ok,
         "ratios": ratios, "rcounts": rcounts,
         "Z2": Z2, "M2": M2,
         "uvl_prev": uvl_prev, "uvl_cur": lcur.xy, "lvalid": lvalid,
-        "desc": cur.desc, "xy": cur.xy, "dvalid": cur.valid,
-        "hists": keyframe_db.descriptor_histogram(cur.desc, cur.valid),  # (C, 256)
+        # dynamic features stay out of the keyframe DB and the loop
+        # verification: two frames seeing one moving object at two places
+        # would vote for a false loop geometry
+        "desc": cur.desc, "xy": cur.xy, "dvalid": cur.valid & ~dyn,
+        "hists": keyframe_db.descriptor_histogram(cur.desc, cur.valid & ~dyn),  # (C, 256)
     }
 
     if cfg.chunk_ba.enabled:
         # chunk BA inputs: the undistorted keypoints and the consecutive-
         # pair track links, from the loose ratio tier gated by each
-        # pair's estimated epipolar geometry (recall drives track length)
+        # pair's estimated epipolar geometry (recall drives track length);
+        # prev_ok carries the dynamic filter, as a slow object's matches
+        # can pass the Sampson gate and corrupt BA through long tracks
         loose = match_ops.ratio_gate(cur.valid, best2, second2,
                                      cfg.matcher.track_ratio) & prev_ok
         egate = (cfg.matcher.track_epipolar_px / focal) ** 2
@@ -251,15 +264,13 @@ class ChunkedSlam:
     verification calls it with the stage "loop_essential" /
     "loop_homography". timer: optional utils.profiling.StageTimer for the
     per-stage breakdown (frontend / chunk_ba / imu_scale / loop_query /
-    state_update / backbone_edges / loop_verify / loop_optimize)."""
+    state_update / backbone_edges / loop_verify / loop_optimize). With
+    enable_detection and enable_dynamic_filtering the front end runs
+    models/detect.make_batched_detector(use_nms=False) from
+    config.detector_weights (random weights when None)."""
 
     def __init__(self, config: PipelineConfig, chunk: int = 16, seed: int = 0,
                  timer=None, device=None, sampler=None):
-        for flag, item in _UNPORTED.items():
-            if getattr(config, flag):
-                raise NotImplementedError(
-                    f"{flag}=True is not ported to aria_slam_tpu_torch's ChunkedSlam yet; "
-                    f"see ROADMAP.md {item}. Set it to False for the odometry path.")
         self.cfg = config
         self.chunk = chunk
         self.device = resolve_device(device)
@@ -271,6 +282,13 @@ class ChunkedSlam:
         self._sampler = sampler
         self.K = torch.as_tensor(config.camera.K, device=self.device)
         self.lag = max(1, min(config.mapper.pair_lag, chunk))
+        self._detector = None
+        if config.enable_detection and config.enable_dynamic_filtering:
+            from aria_slam_tpu_torch.models.detect import make_batched_detector
+
+            self._detector = make_batched_detector(
+                config.detector, weights_path=config.detector_weights, use_nms=False,
+                device=self.device)
 
         # chain-edge translation weight: down-weighted only when the
         # backbone carries the better-conditioned translations
@@ -323,8 +341,13 @@ class ChunkedSlam:
 
     def _frontend(self, frames, gyro_R, gyro_ok) -> dict:
         feats = extract(frames, self.cfg)
+        dyn_all = None
+        if self._detector is not None:
+            # all C+1 frames: the overlap frame's detections are recomputed
+            # each chunk, 1 / (C+1) of the detector's work
+            dyn_all = box_ops.points_in_dynamic_boxes(feats.xy, self._detector(frames))
         return pairs(feats, self._zlast, self._mlast, self._sampler, gyro_R, gyro_ok,
-                     self.cfg, self.lag)
+                     self.cfg, self.lag, dyn_all)
 
     def _chain_scales(self, out, c) -> np.ndarray:
         """Per-pair metric scales. "propagate": s_k = s_{k-1} * ratio_k

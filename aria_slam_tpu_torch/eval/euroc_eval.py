@@ -148,12 +148,14 @@ def _run_chunked(data, config, chunk, n_frames, timer, decode_timer, verbose, t_
 
 
 def _run_online(data, config, n_frames, timer, decode_timer, verbose, t_start, device,
-                sampler):
+                sampler, detector):
     """The online pipeline frame by frame -> (pipe, skipped images, ms a
     frame, the EKF's positions a frame or None without fusion)."""
-    from aria_slam_tpu_torch.pipeline.slam_pipeline import SlamPipeline
+    from aria_slam_tpu_torch.pipeline import factory
 
-    pipe = SlamPipeline(config, device=device, sampler=sampler)
+    # through the factory, which builds the detector of enable_detection
+    pipe = factory.create("cpu" if device.type == "cpu" else "gpu", config, device=device,
+                          sampler=sampler, detector=detector)
     fused = [] if config.enable_fusion else None
     frame_times = []
     t_prev = -np.inf
@@ -215,14 +217,18 @@ def fuse(data, trajectory, config: PipelineConfig, timer=None) -> np.ndarray:
 def run(dataset_path: str, out_dir: str = ".", max_frames: int | None = None,
         config: PipelineConfig | None = None, verbose: bool = True,
         chunk: int = 0, profile_dir: str | None = None,
-        keep_pipe: bool = False, lc_diag: bool = False, device=None, sampler=None) -> dict:
+        keep_pipe: bool = False, lc_diag: bool = False, device=None, sampler=None,
+        detector=None) -> dict:
     """chunk > 1: the chunked offline evaluator; chunk = 0: the online
     per-frame pipeline. profile_dir: a
     torch.profiler trace of the loop. keep_pipe: the evaluator object
     under results['_pipe']. lc_diag: collect the chunked evaluator's
     loop-closure diagnostics (ChunkedSlam.lc_diag). device: CUDA unless
     given; sampler: RANSAC draws (see ops/epipolar.py), default a seeded
-    torch generator. The offline EKF runs on EKF_DEVICE."""
+    torch generator. detector: the online pipeline's object detector
+    (image -> Detections, run with enable_detection), default one built
+    from config.detector_weights; chunk mode builds its own from the
+    config. The offline EKF runs on EKF_DEVICE."""
     from aria_slam_tpu_torch.pipeline.slam_pipeline import resolve_device
 
     data = euroc.load(dataset_path)
@@ -248,7 +254,8 @@ def run(dataset_path: str, out_dir: str = ".", max_frames: int | None = None,
             # the online EKF ran in every frame step: its track is the
             # fused trajectory
             pipe, n_skipped, frame_times, fused_pos = _run_online(
-                data, config, n_frames, timer, decode_timer, verbose, t_start, device, sampler)
+                data, config, n_frames, timer, decode_timer, verbose, t_start, device, sampler,
+                detector)
     pipe.finalize()
 
     # every frame unreadable leaves the trajectory empty: NaN metrics

@@ -49,7 +49,21 @@ class EurocData:
 
 
 def _read_csv(path: str, num_cols: int | None = None) -> np.ndarray:
-    """A numeric CSV with '#' comment lines as a 2-D float64 array."""
+    """A numeric CSV with '#' comment lines as a 2-D float64 array: the
+    native parser (aria_slam_tpu_torch/native.py) when the column count is
+    known, as the JAX package reads the IMU files, else (and for a file
+    where it finds no row of num_cols numbers) the numpy reader."""
+    if num_cols is not None:
+        from aria_slam_tpu_torch import native
+
+        out = native.parse_csv(path, num_cols)
+        if len(out):
+            return out
+    return _read_csv_numpy(path, num_cols)
+
+
+def _read_csv_numpy(path: str, num_cols: int | None = None) -> np.ndarray:
+    """The plain reader of _read_csv (numpy.loadtxt)."""
     out = np.loadtxt(path, delimiter=",", comments="#", ndmin=2)
     if num_cols is not None and len(out) and out.shape[1] != num_cols:
         raise ValueError(f"{path}: {out.shape[1]} columns, expected {num_cols}")

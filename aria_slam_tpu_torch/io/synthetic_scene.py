@@ -1,7 +1,7 @@
 """Synthetic scene renderer and ASL dataset writer (the port's numpy copy
 of the JAX package's io/synthetic_scene.py: texture, trajectory,
-multi-depth scene layers, frame rendering, the IMU samples derived from
-the trajectory, and `generate`).
+multi-depth scene layers, the moving object and its projected box, frame
+rendering, the IMU samples derived from the trajectory, and `generate`).
 
 The reference warps textures with cv2.warpPerspective; this copy does
 the same inverse-homography warp in numpy (source coordinates quantised
@@ -152,6 +152,48 @@ def scene_layers(depth=4.0, seed=0):
     return layers
 
 
+def moving_object_state(t, depth=4.0, span=2.0, size=0.9, speed=1.0):
+    """World corners ((4, 3), CCW) at time t of a textured panel that
+    moves on its own path, decoupled from the camera: the dynamic-object
+    stressor (reference: dynamic-object match filtering,
+    src/main.cpp:29-50, 164-175). Its features obey another epipolar
+    geometry than the static scene; slow apparent motion keeps many of
+    them inside the RANSAC inlier gate, where they bias the estimate."""
+    z = depth * 0.62
+    # back and forth across the view (about 0.35 m/s at speed 1)
+    period = 14.0 / max(speed, 1e-6)
+    ph = 2.0 * np.pi * t / period
+    cx = 0.62 * span * np.sin(ph)
+    cy = 0.25 * np.sin(0.7 * ph) - 0.1
+    hw = size * 0.62
+    hh = size * 0.45
+    return np.array([
+        [cx - hw, cy - hh, z],
+        [cx + hw, cy - hh, z],
+        [cx + hw, cy + hh, z],
+        [cx - hw, cy + hh, z],
+    ])
+
+
+def project_box(cam: CameraConfig, corners_world, R_wc, pos):
+    """Axis-aligned pixel box (x1, y1, x2, y2) of a world quad, clipped
+    to the image; None behind the camera or when under 2 px a side."""
+    R_cw = np.asarray(R_wc).T
+    t_cw = -R_cw @ np.asarray(pos)
+    K = cam.K.astype(np.float64)
+    pc = corners_world @ R_cw.T + t_cw
+    if np.any(pc[:, 2] < 0.2):
+        return None
+    uv = (pc[:, :2] / pc[:, 2:3]) * [K[0, 0], K[1, 1]] + [K[0, 2], K[1, 2]]
+    x1 = float(np.clip(uv[:, 0].min(), 0, cam.width - 1))
+    x2 = float(np.clip(uv[:, 0].max(), 0, cam.width - 1))
+    y1 = float(np.clip(uv[:, 1].min(), 0, cam.height - 1))
+    y2 = float(np.clip(uv[:, 1].max(), 0, cam.height - 1))
+    if x2 - x1 < 2 or y2 - y1 < 2:
+        return None
+    return x1, y1, x2, y2
+
+
 def render_frame(cam: CameraConfig, tex, pos, R_wc, depth=4.0,
                  plane_half=8.0, layers=None):
     """Render the scene from the camera by exact per-plane homographies;
@@ -263,12 +305,14 @@ def generate(
     sinusoidal gain amplitude over the period; occluder: a featureless
     block drifting across the view (texture hidden, then revealed, as by
     a passing foreground object), its grey level drawn from the
-    reference's generator. The moving object, sensor noise and motion
-    blur are not ported yet and raise."""
+    reference's generator. moving_object: a textured panel on its own
+    path (moving_object_state, object_size, object_speed) drawn over the
+    scene; its ground-truth boxes go to mav0/cam0/boxes.csv (ts_ns, x1,
+    y1, x2, y2), a row for each frame where it is in view. Sensor noise
+    and motion blur are not ported yet and raise."""
     from aria_slam_tpu_torch.io.euroc import encode_png_gray8
 
-    unported = {"moving_object": (moving_object, "queue 1 item 8"),
-                "noise_std": (noise_std > 0.0, "queue 1 item 11"),
+    unported = {"noise_std": (noise_std > 0.0, "queue 1 item 11"),
                 "motion_blur": (motion_blur > 1, "queue 1 item 11")}
     for name, (asked, item) in unported.items():
         if asked:
@@ -288,11 +332,22 @@ def generate(
     t0_ns = 1_400_000_000_000_000_000  # EuRoC-style epoch ns
 
     cam_rows = []
+    box_rows = []
+    obj_tex = _texture(512, seed + 999) if moving_object else None
     occ_rng = np.random.default_rng(seed + 7)
     for k in range(num_frames):
         t = k / fps
+        ts_ns = t0_ns + int(round(t * 1e9))
         pos, R = trajectory(t, depth=depth, kind=traj, period=period)
         img = render_frame(cam, tex, pos, R, depth=depth, layers=layers)
+        if moving_object:
+            corners = moving_object_state(t, depth=depth, size=object_size, speed=object_speed)
+            out = _warp_plane(cam, obj_tex, corners, R, pos)
+            if out is not None:
+                img = np.where(out[1] > 0, out[0], img)
+                bb = project_box(cam, corners, R, pos)
+                if bb is not None:
+                    box_rows.append(f"{ts_ns},{bb[0]:.1f},{bb[1]:.1f},{bb[2]:.1f},{bb[3]:.1f}")
         if occluder:
             bw, bh = cam.width // 4, cam.height // 3
             cx = int((k * 7) % (cam.width + bw)) - bw // 2
@@ -305,7 +360,6 @@ def generate(
         if exposure_drift > 0.0:
             gain = 1.0 + exposure_drift * np.sin(2 * np.pi * t / period)
             img = np.clip(img.astype(np.float32) * gain, 0, 255)
-        ts_ns = t0_ns + int(round(t * 1e9))
         fname = f"{ts_ns}.png"
         with open(os.path.join(cam_data, fname), "wb") as f:
             f.write(encode_png_gray8(img.astype(np.uint8)))
@@ -313,6 +367,11 @@ def generate(
     with open(os.path.join(mav, "cam0", "data.csv"), "w") as f:
         f.write("#timestamp [ns],filename\n")
         f.write("\n".join(cam_rows) + "\n")
+
+    if moving_object:
+        with open(os.path.join(mav, "cam0", "boxes.csv"), "w") as f:
+            f.write("#timestamp [ns],x1,y1,x2,y2\n")
+            f.write("\n".join(box_rows) + "\n")
 
     with open(os.path.join(mav, "cam0", "sensor.yaml"), "w") as f:
         f.write(

@@ -1,10 +1,12 @@
 """Map export: ASCII PLY and PCD with packed RGB (counterpart of the JAX
-package's mapping/export.py, its numpy writer byte for byte).
+package's mapping/export.py).
 
 Parity: the reference Mapper::exportPLY (src/legacy/Mapper.cpp:182-216)
 and Mapper::exportPCD (Mapper.cpp:218-256). The map arrives on the host
-in one copy of the padded buffers. The JAX package's native C writer
-waits for ROADMAP.md queue 1 item 10.
+in one copy of the padded buffers; the native writers
+(aria_slam_tpu_torch/native.py, the repository's native/src/io.cpp)
+format it, as the JAX package does. The numpy writers beside them write
+the same bytes and are the plain versions the tests compare with.
 """
 
 from __future__ import annotations
@@ -24,8 +26,21 @@ def _live_points(m: MapState):
 
 
 def export_ply(m: MapState, path: str) -> int:
+    from aria_slam_tpu_torch import native
+
     pts, cols = _live_points(m)
-    rgb = (cols * 255).astype(np.uint8)
+    return native.write_ply(path, pts, (cols * 255).astype(np.uint8))
+
+
+def export_pcd(m: MapState, path: str) -> int:
+    from aria_slam_tpu_torch import native
+
+    pts, cols = _live_points(m)
+    return native.write_pcd(path, pts, (cols * 255).astype(np.uint8))
+
+
+def write_ply_numpy(path: str, pts: np.ndarray, rgb: np.ndarray) -> int:
+    """The plain PLY writer: (N, 3) float32 points, (N, 3) uint8 colours."""
     with open(path, "w") as f:
         f.write("ply\nformat ascii 1.0\n")
         f.write(f"element vertex {len(pts)}\n")
@@ -48,9 +63,9 @@ def export_map(m: MapState, ply_path: Optional[str] = None,
     return n
 
 
-def export_pcd(m: MapState, path: str) -> int:
-    pts, cols = _live_points(m)
-    rgb8 = (cols * 255).astype(np.uint32)
+def write_pcd_numpy(path: str, pts: np.ndarray, rgb: np.ndarray) -> int:
+    """The plain PCD writer: colours packed into a float, as the reference."""
+    rgb8 = rgb.astype(np.uint32)
     packed = (rgb8[:, 0] << 16) | (rgb8[:, 1] << 8) | rgb8[:, 2]
     packed_f = packed.view(np.float32) if len(packed) else packed.astype(np.float32)
     with open(path, "w") as f:

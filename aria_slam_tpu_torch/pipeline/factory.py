@@ -4,6 +4,11 @@ ExecutionMode {GPU, CPU, MOCK}).
 - create_gpu / create_cpu: the same pipeline on a CUDA or a CPU device.
 - create_mock: injects a deterministic mock extractor so the whole
   orchestration can be driven without real features.
+
+With config.enable_detection and no `detector=` given, the detector is
+built on the pipeline's device (models/detect.make_detector) from
+`detector_weights` or config.detector_weights, an .npz in the JAX
+package's format; random weights when neither is set.
 """
 
 from __future__ import annotations
@@ -14,7 +19,7 @@ import torch
 
 from aria_slam_tpu_torch.config import PipelineConfig
 from aria_slam_tpu_torch.core.types import Features
-from aria_slam_tpu_torch.pipeline.slam_pipeline import SlamPipeline
+from aria_slam_tpu_torch.pipeline.slam_pipeline import SlamPipeline, resolve_device
 
 
 class ExecutionMode(enum.Enum):
@@ -55,13 +60,20 @@ def _mock_extractor(cfg: PipelineConfig):
 
 
 def create(mode: ExecutionMode | str = ExecutionMode.GPU,
-           config: PipelineConfig | None = None, **kw) -> SlamPipeline:
+           config: PipelineConfig | None = None,
+           detector_weights: str | None = None, **kw) -> SlamPipeline:
     mode = ExecutionMode(mode) if isinstance(mode, str) else mode
     config = config or PipelineConfig()
-    if mode is ExecutionMode.MOCK:
-        return SlamPipeline(config, extractor=_mock_extractor(config), **kw)
     if mode is ExecutionMode.CPU:
         kw["device"] = "cpu"
+    if config.enable_detection and kw.get("detector") is None:
+        from aria_slam_tpu_torch.models.detect import make_detector
+
+        kw["detector"] = make_detector(
+            config.detector, weights_path=detector_weights or config.detector_weights,
+            device=resolve_device(kw.get("device")))
+    if mode is ExecutionMode.MOCK:
+        return SlamPipeline(config, extractor=_mock_extractor(config), **kw)
     return SlamPipeline(config, **kw)
 
 

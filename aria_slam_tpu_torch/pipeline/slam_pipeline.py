@@ -21,8 +21,14 @@ flag, and nothing in the step consumes the EKF, so it runs at
 publishing, on the host (EKF_ON_HOST). With lazy_depth > 0 (pipelined mode)
 process_frame returns None and publishes each frame lazy_depth frames
 late, so the host enqueues the next steps while the card runs.
-Detection and dynamic filtering are not ported yet: asking for them
-raises NotImplementedError naming the ROADMAP item that will port them.
+
+With enable_detection the injected detector (models/detect.make_detector,
+which pipeline/factory.py builds) runs on the frame beside ORB, and its
+Detections stay on the card unless the caller reads them; with
+enable_dynamic_filtering the matches whose current keypoint lies in a
+box of a dynamic class are dropped before the pose estimate
+(ops/boxes.py). SlamPipeline itself builds no detector: without one the
+frame's detections are empty, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -38,11 +44,11 @@ from aria_slam_tpu_torch.backend.loop_closure import LoopResult
 from aria_slam_tpu_torch.config import PipelineConfig
 from aria_slam_tpu_torch.core import lie
 from aria_slam_tpu_torch.core.types import (
-    EkfState, Features, KeyframeDB, MapState, PoseGraph, make_empty_features,
+    Detections, EkfState, Features, KeyframeDB, MapState, PoseGraph, make_empty_features,
 )
 from aria_slam_tpu_torch.fusion import ekf
 from aria_slam_tpu_torch.mapping import export, mapper
-from aria_slam_tpu_torch.ops import epipolar, match as match_ops, orb
+from aria_slam_tpu_torch.ops import boxes, epipolar, match as match_ops, orb
 from aria_slam_tpu_torch.ops.undistort import undistort_points
 
 # The online EKF runs on the host whatever device the step runs on: a
@@ -51,22 +57,6 @@ from aria_slam_tpu_torch.ops.undistort import undistort_points
 # online phase of chip_smoke.py times both routes on the run's own
 # inputs). It runs from the pose that publishing reads anyway.
 EKF_ON_HOST = True
-
-# flag -> the ROADMAP.md queue-1 item that ports it
-_UNPORTED = {
-    "enable_detection": "queue 1 item 8 (detector)",
-    "enable_dynamic_filtering": "queue 1 item 8 (detector)",
-}
-
-
-def check_supported(cfg: PipelineConfig) -> None:
-    """Raise NotImplementedError for a feature the port does not run."""
-    for flag, item in _UNPORTED.items():
-        if getattr(cfg, flag):
-            raise NotImplementedError(
-                f"{flag}=True is not ported to aria_slam_tpu_torch yet; "
-                f"see ROADMAP.md {item}. Set it to False.")
-
 
 def resolve_device(device) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller asks
@@ -130,13 +120,24 @@ class StepOutput:
     num_features: torch.Tensor  # () int32
     num_matches: torch.Tensor   # () int32
     num_inliers: torch.Tensor   # () int32
-    num_filtered: torch.Tensor  # () int32: matches the dynamic filter dropped (0: not ported)
+    num_filtered: torch.Tensor  # () int32: matches the dynamic filter dropped
     vo_success: torch.Tensor    # () bool
     loop: LoopResult
+    detections: Detections      # the frame's detections (empty without a detector)
     # the EKF position and quaternion after this frame, set when it is
     # published (process_frame in sync mode, the pop in lazy mode)
     fused_pos: Optional[torch.Tensor] = None   # (3,)
     fused_quat: Optional[torch.Tensor] = None  # (4,)
+
+
+def _empty_detections(cfg: PipelineConfig, device) -> Detections:
+    d = cfg.detector.max_detections
+    return Detections(
+        boxes=torch.zeros((d, 4), dtype=torch.float32, device=device),
+        scores=torch.zeros((d,), dtype=torch.float32, device=device),
+        classes=torch.zeros((d,), dtype=torch.int32, device=device),
+        valid=torch.zeros((d,), dtype=torch.bool, device=device),
+    )
 
 
 def init_state(cfg: PipelineConfig, device) -> FrameState:
@@ -174,15 +175,19 @@ def gyro_rotation(prev_ts, imu_t, imu_gyr, imu_valid, R_ci):
 
 
 def make_frame_step(cfg: PipelineConfig, sampler, extractor: Optional[Callable] = None,
-                    matcher: Optional[Callable] = None, device="cuda"):
+                    matcher: Optional[Callable] = None, device="cuda",
+                    detector: Optional[Callable] = None):
     """Build the per-frame step with injected components. The loop
     verification draws from `sampler` with the stages "loop_essential" /
-    "loop_homography"."""
+    "loop_homography"; `detector` (image (H, W) -> Detections) runs when
+    cfg.enable_detection."""
     K = torch.as_tensor(cfg.camera.K, device=device)
     R_ci = torch.tensor(cfg.imu_cam_rotation, dtype=torch.float32, device=device)
     extractor = extractor or (lambda img: orb.extract(img, cfg.orb))
     matcher = matcher or (
         lambda q, t: match_ops.match(q, t, cfg.matcher.ratio, cfg.matcher.cross_check))
+    detect = detector if cfg.enable_detection else None
+    no_dets = _empty_detections(cfg, device)  # read only
 
     def loop_sampler(valid, num_hypotheses, sample_size, stage):
         return sampler(valid, num_hypotheses, sample_size, "loop_" + stage)
@@ -192,10 +197,16 @@ def make_frame_step(cfg: PipelineConfig, sampler, extractor: Optional[Callable] 
         dev = image.device
         feats = extractor(image)
         feats = feats.replace(xy=undistort_points(feats.xy, cfg.camera))
+        dets = detect(image) if detect is not None else no_dets
 
-        # matching (query = current, train = previous)
+        # matching (query = current, train = previous), then the dynamic
+        # filter on the current keypoints
         m = matcher(feats, state.prev_feats)
         m_valid = m.valid & state.prev_valid
+        pre_filter = m_valid.to(torch.int32).sum()
+        if cfg.enable_dynamic_filtering:
+            in_dyn = boxes.points_in_dynamic_boxes(feats.xy, dets)
+            m_valid = m_valid & ~in_dyn[m.query_idx.long()]
         num_matches = m_valid.to(torch.int32).sum()
 
         # epipolar VO with the gyro rotation fused where IMU is present
@@ -292,8 +303,8 @@ def make_frame_step(cfg: PipelineConfig, sampler, extractor: Optional[Callable] 
         )
         out = StepOutput(pose=pose_new, num_features=feats.num_valid(),
                          num_matches=num_matches, num_inliers=delta.num_inliers,
-                         num_filtered=torch.zeros((), dtype=torch.int32, device=dev),
-                         vo_success=vo_ok, loop=loop)
+                         num_filtered=pre_filter - num_matches,
+                         vo_success=vo_ok, loop=loop, detections=dets)
         return new_state, out
 
     return step
@@ -307,20 +318,22 @@ class SlamPipeline:
     otherwise; RANSAC draws from an explicit torch.Generator seeded with
     `seed`, or from `sampler` when given (see ops/epipolar.py).
     lazy_depth > 0: the pipelined mode (see the module docstring); read
-    the trajectory after `flush` or `finalize`.
+    the trajectory after `flush` or `finalize`. detector: image (H, W) ->
+    Detections on the step's device, run when config.enable_detection
+    (pipeline/factory.py builds one from the config's weights).
     """
 
     def __init__(self, config: PipelineConfig | None = None, *, device=None,
-                 extractor=None, matcher=None, sampler=None, seed: int = 0,
+                 extractor=None, matcher=None, detector=None, sampler=None, seed: int = 0,
                  lazy_depth: int = 0):
         self.config = config or PipelineConfig()
-        check_supported(self.config)
         self.device = resolve_device(device)
         if sampler is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
             sampler = epipolar.TorchSampler(gen)
-        self._step = make_frame_step(self.config, sampler, extractor, matcher, self.device)
+        self._step = make_frame_step(self.config, sampler, extractor, matcher, self.device,
+                                     detector)
         self.state = init_state(self.config, self.device)
         self._ekf_consts = ekf._Consts(self.config.ekf, torch.float32, ekf_device(self.device))
         self._imu_buf: list = []

@@ -116,14 +116,48 @@ Phases, one line each; any failure raises and exits non-zero:
               online_benchmark.run_mode in sync and in lazy mode (depth 3)
               on 24 full-width frames: both ms a frame, the trajectories
               within 1e-5 m.
+9. detect  -- the object detector, YOLO-s at 640 px in bf16
+              (DetectorConfig() with random weights from a seeded
+              torch.Generator). (a) alone on 752x480 frames, make_detector
+              at B = 1 with NMS and make_batched_detector at B = 33
+              without: the whole call, preprocess, forward (also its
+              device time in a CUDA graph), decode, postprocess and NMS
+              timed apart, kernels a call, peak memory, the convolutions'
+              input dtype (fails unless bf16) and the bound from the
+              layer shapes (operations at the bf16 peak against the
+              function's bytes); the same weights and frame through the
+              port on the CPU (logits within DET_LOGIT_TOL of each level's
+              largest, the same anchors past the gate outside that band)
+              and the card's postprocess and NMS against the CPU's on the
+              card's decoded output (equal). (b) the slice's 20 frames
+              through factory.create_gpu with detection and dynamic
+              filtering on (the slice's VO-only configuration, gate
+              DET_CONF): step median and p90 beside the VO-only slice's,
+              the detector's span on the stream, num_filtered a frame,
+              launches (corner, patch, match 1 a frame), and the last
+              step's detections equal to make_detector's. (c) generate
+              (moving_object=True) writes MOVING_FRAMES frames and
+              boxes.csv; euroc_eval.run(chunk=0) on the first
+              MOVING_ONLINE_FRAMES with a detector that returns the
+              ground-truth panel box as a person (the factory's detector=
+              argument), then without detection: num_filtered, VO
+              success, Umeyama scale, Sim3 and scale-fixed ATE (fails
+              unless every frame with the box in view, at least
+              MIN_BOX_PX a side, filters a match and VO succeeds on 90 %).
+              (d) euroc_eval.run(chunk=32) in vio on that directory with
+              YOLO-s in the front end (B = 33, no NMS) and without:
+              device_chunk ms, launches (corner 8, patch 8, match 16),
+              peak memory.
 
 The line before the last holds the card's name and power limit as
 nvidia-smi reports them, the one before it the kernels' JSON record (each
 kernel at the online slice's shape with that slice's launches, at the
 chunked path's shape with that path's, the match kernel at the loop
 path's two shapes, the verify batch on that run's own inputs, with the
-launches counted inside lc_query and verify_batch, and at the online loop
-closure's two, with the launches of the online phase), and the last line is
+launches counted inside lc_query and verify_batch, at the online loop
+closure's two, with the launches of the online phase, and each kernel at
+the online and chunked shapes once more with the launches of the detect
+phase's runs (b) and (d)), and the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -626,7 +660,6 @@ def run_slice(frames, gt, imu, cam):
     cfg = PipelineConfig(camera=cam, enable_fusion=False, enable_loop_closure=False,
                          enable_mapping=False)
     pipe = factory.create_gpu(cfg)
-    imu_t, imu_a, imu_g = imu
     gc.collect()  # drop the kernel phase's graphs and tensors before measuring memory
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -634,19 +667,8 @@ def run_slice(frames, gt, imu, cam):
     base_mb = torch.cuda.memory_allocated() / 2**20
     for k in kernels:
         k.launches = 0
-    step_ms, outs, t_prev = [], [], -np.inf
-    for k, img in enumerate(frames):
-        ts = k / FPS
-        for j in np.nonzero((imu_t > t_prev) & (imu_t <= ts))[0]:  # (t_prev, ts]
-            pipe.process_imu(imu_t[j], imu_a[j], imu_g[j])
-        t0 = time.perf_counter()
-        pipe.process_frame(img, ts)
-        torch.cuda.synchronize()
-        step_ms.append((time.perf_counter() - t0) * 1e3)
-        o = pipe.last_output
-        outs.append((int(o.num_features), int(o.num_matches), int(o.num_inliers),
-                     bool(o.vo_success)))
-        t_prev = ts
+    step_ms, outs = drive_frames(pipe, frames, imu, lambda o: (
+        int(o.num_features), int(o.num_matches), int(o.num_inliers), bool(o.vo_success)))
     launches = {k.__name__: k.launches for k in kernels}
     t0 = time.perf_counter()
     pipe.finalize()
@@ -679,6 +701,25 @@ def run_slice(frames, gt, imu, cam):
                           mean_features=float(feats.mean()),
                           mean_matches=float(matches[1:].mean()),
                           mean_inliers=float(inliers[1:].mean()))
+
+
+def drive_frames(pipe, frames, imu, read):
+    """Feed `frames` at FPS with their IMU samples in (t_prev, ts] to an
+    online pipeline, each step ended by a synchronise. -> (step ms,
+    read(pipe.last_output) a frame)."""
+    imu_t, imu_a, imu_g = imu
+    step_ms, outs, t_prev = [], [], -np.inf
+    for k, img in enumerate(frames):
+        ts = k / FPS
+        for j in np.nonzero((imu_t > t_prev) & (imu_t <= ts))[0]:
+            pipe.process_imu(imu_t[j], imu_a[j], imu_g[j])
+        t0 = time.perf_counter()
+        pipe.process_frame(img, ts)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        outs.append(read(pipe.last_output))
+        t_prev = ts
+    return step_ms, outs
 
 
 def profile_slice(frames, imu, cam, n: int = 5):
@@ -1411,6 +1452,421 @@ def run_online(cam, tmp, gt, chunked_lc):
     return launches, rec
 
 
+# ---------------------------------------------------------------- detect
+BF16_OPS_PER_MS = 989e12 / 1e3
+# the gate of parts (b) and (d): random weights score every anchor near
+# 0.5, so at 0.9 they fire rarely (tests/test_chunked.py's choice)
+DET_CONF = 0.9
+# bf16 logits on the card against the port on the CPU: within this share
+# of the level's largest |logit| (tests/test_torch_detector.py BF16_TOL)
+DET_LOGIT_TOL = 0.03
+MOVING_FRAMES = LOOP_FRAMES   # the moving-object scene: 8 chunks of 32 in part (d)
+MOVING_ONLINE_FRAMES = 120    # part (c) reads the first 120 frames online
+MIN_BOX_PX = 16               # part (c)'s gate counts boxes at least this wide and high
+
+
+def conv_census(model):
+    """Forward hooks on every convolution of `model`: a call's input dtype
+    and cuDNN's TF32 flag at that moment, its operations (2 x MACs) and its
+    unfused traffic (input, kernel and output once each). -> (records,
+    handles); reset records["calls"] before a counted call."""
+    from aria_slam_tpu_torch.models import yolo
+
+    rec = {"calls": []}
+
+    def hook(mod, inputs, out):
+        x = inputs[0]
+        k = mod.kernel
+        rec["calls"].append(dict(
+            dtype=str(x.dtype), tf32=bool(torch.backends.cudnn.allow_tf32),
+            ops=2.0 * out.numel() * k.shape[1] * k.shape[2] * k.shape[3],
+            nbytes=float(x.numel() * x.element_size() + k.numel() * k.element_size()
+                         + out.numel() * out.element_size())))
+
+    handles = [m.register_forward_hook(hook) for m in model.modules()
+               if isinstance(m, yolo.Conv)]
+    return rec, handles
+
+
+def cuda_kernels(fn) -> int:
+    """Kernels and copies the card ran for one call of fn (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA)
+
+
+def peak_mib(fn) -> float:
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 2**20
+
+
+def run_detect_alone(frames, dev):
+    """Part (a): the detector alone at YOLO-s width (DetectorConfig() as it
+    is, 640 px, random weights from a seeded torch.Generator) on 752x480
+    frames, B = 1 with NMS and B = 33 without, each piece timed."""
+    import copy
+    import dataclasses
+
+    from aria_slam_tpu_torch.config import DetectorConfig
+    from aria_slam_tpu_torch.models import detect, yolo
+    from aria_slam_tpu_torch.ops import boxes
+
+    cfg = DetectorConfig()
+    cpu_model = yolo.init_model(cfg, torch.Generator().manual_seed(0))
+    model = copy.deepcopy(cpu_model).to(dev).eval()
+    census, handles = conv_census(model)
+    h, w = frames[0].shape
+    out = {"config": dataclasses.asdict(cfg)}
+    single = detect.make_detector(cfg, model=model, device=dev)
+    batched = detect.make_batched_detector(cfg, model=model, use_nms=False, device=dev)
+    for b in (1, CHUNK + 1):
+        imgs = torch.from_numpy(np.stack(frames[:b]).astype(np.float32)).to(dev)
+        x = detect.preprocess(imgs, cfg.input_size)
+        with torch.no_grad():
+            census["calls"] = []
+            outs = model(x)
+        calls = list(census["calls"])
+        bxs, scores = yolo.decode_predictions(outs, cfg.input_size, cfg.num_classes)
+        post = detect._postprocess(bxs, scores, cfg, h, w, use_nms=False)
+        whole = (lambda: single(imgs[0])) if b == 1 else (lambda: batched(imgs))
+        with torch.no_grad():
+            r = dict(
+                ms=cuda_ms(whole, iters=10, warmup=3),
+                preprocess_ms=cuda_ms(lambda: detect.preprocess(imgs, cfg.input_size), iters=10),
+                forward_ms=cuda_ms(lambda: model(x), iters=10),
+                forward_device_ms=graph_ms(lambda: model(x), iters=3 if b > 1 else 10,
+                                           replays=3 if b > 1 else 5),
+                decode_ms=cuda_ms(lambda: yolo.decode_predictions(outs, cfg.input_size,
+                                                                  cfg.num_classes), iters=10),
+                postprocess_ms=cuda_ms(lambda: detect._postprocess(bxs, scores, cfg, h, w,
+                                                                   use_nms=False), iters=10))
+        if b == 1:
+            nms_args = (post.boxes[0], post.scores[0], post.valid[0], cfg.nms_iou_threshold)
+            r["nms_ms"] = cuda_ms(lambda: boxes.nms(*nms_args), iters=5)
+            r["nms_device_ms"] = graph_ms(lambda: boxes.nms(*nms_args), iters=2, replays=3)
+            r["nms_kernels"] = cuda_kernels(lambda: boxes.nms(*nms_args))
+        r["kernels"] = cuda_kernels(whole)
+        r["peak_mib"] = peak_mib(whole)
+        ops = sum(c["ops"] for c in calls)
+        weights = sum(p.numel() * p.element_size() for p in model.parameters()) + sum(
+            t.numel() * t.element_size() for t in model.buffers())
+        d = cfg.max_detections
+        min_bytes = imgs.numel() * 4 + weights + b * d * (4 * 4 + 4 + 4 + 1)
+        b_ms, by = bound(min_bytes, ops, BF16_OPS_PER_MS)
+        r.update(convs=len(calls), gflop=ops / 1e9, gflop_per_image=ops / b / 1e9,
+                 min_bytes=min_bytes, unfused_conv_bytes=sum(c["nbytes"] for c in calls),
+                 bound_ms=b_ms, bound_by=by,
+                 unfused_bytes_ms=sum(c["nbytes"] for c in calls) / HBM_BYTES_PER_MS,
+                 conv_dtypes=sorted({c["dtype"] for c in calls}),
+                 conv_tf32=any(c["tf32"] and c["dtype"] == "torch.float32" for c in calls))
+        out[f"B{b}"] = r
+        log("detect", f"(a) YOLO-s {cfg.input_size} px, B={b} at {w}x{h}: whole call "
+                      f"{r['ms']:.3f} ms ({'make_detector, NMS' if b == 1 else 'make_batched_detector, no NMS'}); "
+                      f"preprocess {r['preprocess_ms']:.3f}, forward {r['forward_ms']:.3f} ms "
+                      f"(device {r['forward_device_ms']:.3f} ms in a CUDA graph), decode "
+                      f"{r['decode_ms']:.3f}, postprocess without NMS {r['postprocess_ms']:.3f}"
+                      + (f", NMS {r['nms_ms']:.3f} ms (device {r['nms_device_ms']:.3f} ms, "
+                         f"{r['nms_kernels']} kernels)" if b == 1 else "")
+                      + f"; {r['kernels']} kernels and copies a call; {len(calls)} convs, "
+                        f"{r['gflop_per_image']:.2f} GFLOP an image, bound {b_ms:.4f} ms "
+                        f"({by}; unfused conv traffic {r['unfused_bytes_ms']:.4f} ms at HBM "
+                        f"rate); peak {r['peak_mib']:.1f} MiB; conv input dtypes "
+                        f"{r['conv_dtypes']}")
+        if r["conv_dtypes"] != ["torch.bfloat16"] or r["conv_tf32"]:
+            raise AssertionError(f"detector convs ran as {r['conv_dtypes']} (TF32 float32: "
+                                 f"{r['conv_tf32']}); expected bf16")
+    for hd in handles:
+        hd.remove()
+
+    # the same weights and frame through the port on the CPU
+    img = torch.from_numpy(frames[0].astype(np.float32))
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cpu_outs = cpu_model(detect.preprocess(img, cfg.input_size))
+        dev_outs = model(detect.preprocess(img.to(dev), cfg.input_size))
+    cpu_s = time.perf_counter() - t0
+    worst = 0.0
+    for lvl, (co, do) in enumerate(zip(cpu_outs, dev_outs)):
+        for c, g in zip(co, do):
+            c, g = c.float(), g.float().cpu()
+            err = float((c - g).abs().max() / c.abs().max())
+            worst = max(worst, err)
+    cb, cs = yolo.decode_predictions(cpu_outs, cfg.input_size, cfg.num_classes)
+    gb, gs = yolo.decode_predictions(dev_outs, cfg.input_size, cfg.num_classes)
+    # the gate 0.5 is logit 0: an anchor whose best class logit on the CPU
+    # lies within the tolerance of 0 may fall either side
+    cls_logits = torch.cat([o[1].float().permute(0, 2, 3, 1).reshape(-1, o[1].shape[1])
+                            for o in cpu_outs])
+    band = float(cls_logits.abs().max())
+    ambiguous = cls_logits.amax(-1).abs() < DET_LOGIT_TOL * band
+    gate_c = cs[0].amax(-1) >= cfg.conf_threshold
+    gate_g = gs[0].amax(-1).cpu() >= cfg.conf_threshold
+    gate_diff = int(((gate_c != gate_g) & ~ambiguous).sum())
+    # the card's postprocess and NMS against the CPU's on the card's
+    # decoded boxes and scores
+    pd = detect._postprocess(gb[0], gs[0], cfg, h, w)
+    pc = detect._postprocess(gb[0].cpu(), gs[0].cpu(), cfg, h, w)
+    same = all(torch.equal(getattr(pd, f).cpu(), getattr(pc, f))
+               for f in ("valid", "classes", "scores"))
+    box_err = float((pd.boxes.cpu() - pc.boxes).abs().max())
+    out["cpu_check"] = dict(max_rel_logit_err=worst, tol=DET_LOGIT_TOL, cpu_s=cpu_s,
+                            gate_anchors=int(gate_c.sum()), ambiguous=int(ambiguous.sum()),
+                            gate_diff=gate_diff, valid=int(pd.valid.sum()),
+                            postprocess_equal=same, box_err=box_err)
+    log("detect", f"(a) against the port on the CPU (same weights, frame 0; {cpu_s:.1f} s): "
+                  f"logits within {worst:.4f} of each level's largest |logit| (tolerance "
+                  f"{DET_LOGIT_TOL}); {int(gate_c.sum())} of {gate_c.numel()} anchors past the "
+                  f"{cfg.conf_threshold} gate on the CPU, {gate_diff} differ outside the "
+                  f"{int(ambiguous.sum())} within the tolerance of it; postprocess + NMS on the "
+                  f"card's decoded output, card against CPU: valid / classes / scores equal "
+                  f"{same}, boxes within {box_err:.2e} px, {int(pd.valid.sum())} valid")
+    if not (worst <= DET_LOGIT_TOL and gate_diff == 0 and same and box_err <= 1e-3):
+        raise AssertionError(f"detector on the card against the CPU: {out['cpu_check']}")
+    return out
+
+
+def run_detect_online(frames, gt, imu, cam, slice_rec):
+    """Part (b): the online slice's 20 frames through factory.create_gpu
+    with detection and dynamic filtering on (the slice's VO-only
+    configuration plus the detector: YOLO-s, random weights, gate
+    DET_CONF), counts set to 0 just before it; the VO-only configuration
+    without the detector runs just before and just after it, since the
+    host-bound steps drift over a long process (the slice phase's own
+    steps are printed beside them)."""
+    import dataclasses
+
+    from aria_slam_tpu_torch.config import DetectorConfig, PipelineConfig
+    from aria_slam_tpu_torch.eval import metrics
+    from aria_slam_tpu_torch.models import detect
+    from aria_slam_tpu_torch.ops.cuda import corner_kernel, match_kernel, patch_kernel
+    from aria_slam_tpu_torch.pipeline import factory
+
+    kernels = (corner_kernel.corner_rank_maps, patch_kernel.extract_patches_levels,
+               match_kernel.match_top2_batched)
+    det_cfg = dataclasses.replace(DetectorConfig(), conf_threshold=DET_CONF)
+    vo_cfg = PipelineConfig(camera=cam, enable_fusion=False, enable_loop_closure=False,
+                            enable_mapping=False)
+    cfg = dataclasses.replace(vo_cfg, enable_detection=True, enable_dynamic_filtering=True,
+                              detector=det_cfg)
+    built, spans = [], []
+    make = detect.make_detector
+
+    def capture(*a, **kw):
+        det = make(*a, **kw)
+
+        def timed(image):
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = det(image)
+            e.record()
+            spans.append((s, e))
+            return out
+
+        built.append(det)
+        return timed
+
+    with mock.patch.object(detect, "make_detector", capture):
+        pipe = factory.create_gpu(cfg)
+    vo_ms = [drive_frames(factory.create_gpu(vo_cfg), frames, imu, lambda o: None)[0]]
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    step_ms, outs = drive_frames(pipe, frames, imu, lambda o: (
+        int(o.num_matches), int(o.num_filtered), bool(o.vo_success),
+        int(o.detections.valid.sum())))
+    launches = {k.__name__: k.launches for k in kernels}
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    det_ms = [s.elapsed_time(e) for s, e in spans]
+    vo_ms.append(drive_frames(factory.create_gpu(vo_cfg), frames, imu, lambda o: None)[0])
+    pipe.finalize()
+    est = np.stack([T[:3, 3] for _, T in pipe.trajectory])
+    ate = metrics.ate_rmse(est, gt)
+    # the step's detections against make_detector's on the last frame
+    last = built[0](torch.from_numpy(np.asarray(frames[-1])).to(pipe.device).to(torch.float32))
+    dets = pipe.last_output.detections
+    same = all(torch.equal(getattr(last, f), getattr(dets, f))
+               for f in ("boxes", "scores", "classes", "valid"))
+    matches, filtered, ok, nvalid = (np.array(c) for c in zip(*outs))
+    steady = np.array(step_ms[1:])
+    share = float(np.median(det_ms[1:]) / np.median(steady))
+    success = float(ok[1:].mean())
+
+    def med_p90(ms):
+        return float(np.median(ms[1:])), float(np.percentile(ms[1:], 90))
+
+    rec = dict(step_ms=step_ms, detector_span_ms=det_ms, launches=launches, peak_mib=peak_mb,
+               ate_m=ate, vo_success=success, num_filtered=filtered.tolist(),
+               detections_valid=nvalid.tolist(), detections_equal=same, conf_threshold=DET_CONF,
+               step_ms_median_p90=med_p90(step_ms), vo_only_before=med_p90(vo_ms[0]),
+               vo_only_after=med_p90(vo_ms[1]), slice_phase=med_p90(slice_rec["step_ms"]),
+               vo_only_step_ms=vo_ms, detector_share=share)
+    log("detect", f"(b) create_gpu with detection and filtering (the slice's VO-only "
+                  f"configuration, YOLO-s random weights, conf_threshold {DET_CONF} so that they "
+                  f"fire rarely): {len(frames)} frames, step ms median / p90 "
+                  "%.2f / %.2f against the same configuration without the detector just before "
+                  "%.2f / %.2f and just after %.2f / %.2f (the slice phase's %.2f / %.2f); "
+                  % (*rec["step_ms_median_p90"], *rec["vo_only_before"], *rec["vo_only_after"],
+                     *rec["slice_phase"])
+                  + f"the detector's span on the stream median "
+                  f"{np.median(det_ms[1:]):.2f} ms ({100 * share:.1f} % of a step); "
+                  f"num_filtered a frame {filtered.tolist()}; valid detections a frame "
+                  f"{nvalid.tolist()}; vo_success {success:.3f}; Sim3 ATE {ate:.4f} m; peak "
+                  f"{peak_mb:.1f} MiB; launches {launches}; the last step's detections equal "
+                  f"make_detector's on that frame: {same}")
+    n = len(frames)
+    want = {"corner_rank_maps": n, "extract_patches_levels": n, "match_top2_batched": n}
+    if launches != want:
+        raise AssertionError(f"detect online launch counts {launches}, expected {want}")
+    if not (success >= 0.9 and np.isfinite(est).all() and ate < 0.35 and same):
+        raise AssertionError(f"detect online: {rec}")
+    return launches, rec
+
+
+def run_detect_moving(cam, tmp):
+    """Parts (c) and (d) on the port's moving-object scene (generate with
+    moving_object=True, MOVING_FRAMES frames at 752x480, 10 fps). (c)
+    euroc_eval.run(chunk=0) on the first MOVING_ONLINE_FRAMES with
+    PipelineConfig()'s features, filtering on and a detector injected
+    through the factory's detector= argument that returns the frame's
+    ground-truth panel box (boxes.csv) as a person; then detection and
+    filtering off. (d) euroc_eval.run(chunk=32) in the eval phase's vio
+    configuration with YOLO-s random weights in the front end (B = 33, no
+    NMS, gate DET_CONF) and without; counts set to 0 before each run."""
+    import dataclasses
+
+    from aria_slam_tpu_torch.config import DetectorConfig, PipelineConfig
+    from aria_slam_tpu_torch.core.types import Detections
+    from aria_slam_tpu_torch.eval import euroc_eval
+    from aria_slam_tpu_torch.io import synthetic_scene
+    from aria_slam_tpu_torch.ops.cuda import corner_kernel, match_kernel, patch_kernel
+    from aria_slam_tpu_torch.pipeline.slam_pipeline import SlamPipeline
+
+    kernels = (corner_kernel.corner_rank_maps, patch_kernel.extract_patches_levels,
+               match_kernel.match_top2_batched)
+    scene = f"{tmp}/moving"
+    t0 = time.perf_counter()
+    synthetic_scene.generate(scene, num_frames=MOVING_FRAMES, fps=FPS, cam=cam, depth=4.0,
+                             moving_object=True)
+    gen_s = time.perf_counter() - t0
+    t0_ns = 1_400_000_000_000_000_000
+    boxes = {}
+    for line in open(f"{scene}/mav0/cam0/boxes.csv").read().splitlines()[1:]:
+        f = line.split(",")
+        boxes[round((int(f[0]) - t0_ns) / 1e9 * FPS)] = np.array(f[1:], np.float32)
+    n_on = MOVING_ONLINE_FRAMES
+    in_view = [k for k in range(1, n_on) if k in boxes
+               and min(boxes[k][2] - boxes[k][0], boxes[k][3] - boxes[k][1]) >= MIN_BOX_PX]
+    log("detect", f"(c) generate(moving_object=True): {MOVING_FRAMES} frames "
+                  f"{cam.width}x{cam.height} in {gen_s:.1f} s; the panel's box in "
+                  f"{len(boxes)} frames, {len(in_view)} of the first {n_on} at least "
+                  f"{MIN_BOX_PX} px a side")
+    calls = []
+
+    def gt_detector(image):
+        k = len(calls)
+        calls.append(k)
+        if k in boxes:
+            return Detections(torch.from_numpy(boxes[k][None]).to(image.device),
+                              torch.ones(1, device=image.device),
+                              torch.zeros(1, dtype=torch.int32, device=image.device),
+                              torch.ones(1, dtype=torch.bool, device=image.device))
+        return Detections(torch.zeros((1, 4), device=image.device),
+                          torch.zeros(1, device=image.device),
+                          torch.zeros(1, dtype=torch.int32, device=image.device),
+                          torch.zeros(1, dtype=torch.bool, device=image.device))
+
+    per_frame = []
+    process_frame = SlamPipeline.process_frame
+
+    def recorded(self, *a):
+        pose = process_frame(self, *a)
+        o = self.last_output
+        per_frame.append((int(o.num_filtered), bool(o.vo_success)))
+        return pose
+
+    rec = {"generate_s": gen_s, "frames_in_view": in_view}
+    for name, cfg, det in (
+            ("filtered", PipelineConfig(enable_detection=True, enable_dynamic_filtering=True),
+             gt_detector),
+            ("unfiltered", PipelineConfig(), None)):
+        per_frame.clear()
+        t0 = time.perf_counter()
+        with mock.patch.object(SlamPipeline, "process_frame", recorded):
+            res = euroc_eval.run(scene, out_dir=f"{tmp}/moving_{name}", config=cfg,
+                                 max_frames=n_on, verbose=False, chunk=0, detector=det,
+                                 keep_pipe=True)
+        wall_s = time.perf_counter() - t0
+        pipe = res.pop("_pipe")
+        est = np.stack([T[:3, 3] for _, T in pipe.trajectory])
+        filt = np.array([f for f, _ in per_frame])
+        ok = float(np.mean([s for _, s in per_frame[1:]]))
+        rec[name] = dict(res, wall_s=wall_s, vo_success=ok, num_filtered=filt.tolist())
+        log("detect", f"(c) euroc_eval.run chunk=0, {name}: {res['frames']} frames in "
+                      f"{wall_s:.1f} s; num_filtered a frame mean {filt.mean():.1f} (min over "
+                      f"the in-view frames {filt[in_view].min() if name == 'filtered' else 0}); "
+                      f"vo_success {ok:.3f}; Umeyama scale {res['umeyama_scale']:.4f}; ATE "
+                      f"Sim3 {res['ate_rmse_m']:.4f} m, scale-fixed "
+                      f"{res['ate_noscale_rmse_m']:.4f} m; steady_frame_ms "
+                      f"{res['steady_frame_ms']:.2f}")
+        if not np.isfinite(est).all():
+            raise AssertionError(f"moving object, {name}: a non-finite pose")
+        if name == "filtered" and not (ok >= 0.9 and len(calls) == n_on
+                                       and (filt[in_view] > 0).all()):
+            raise AssertionError(f"moving object, filtered: vo_success {ok}, detector calls "
+                                 f"{len(calls)}, in-view frames without a filtered match "
+                                 f"{[k for k in in_view if filt[k] == 0]}")
+
+    # (d) chunk mode, the front end with and without the detector
+    det_cfg = dataclasses.replace(DetectorConfig(), conf_threshold=DET_CONF)
+    vio = benchmark_config(cam, loop_closure=False)
+    launches = {}
+    for name, cfg in (("chunk_detect", dataclasses.replace(
+            vio, enable_detection=True, enable_dynamic_filtering=True, detector=det_cfg)),
+                      ("chunk_plain", vio)):
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels:
+            k.launches = 0
+        t0 = time.perf_counter()
+        res = euroc_eval.run(scene, out_dir=f"{tmp}/moving_{name}", config=cfg, verbose=False,
+                             chunk=CHUNK, keep_pipe=True)
+        wall_s = time.perf_counter() - t0
+        launches[name] = {k.__name__: k.launches for k in kernels}
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        pipe = res.pop("_pipe")
+        est = np.stack([T[:3, 3] for _, T in pipe.trajectory])
+        rec[name] = dict(res, wall_s=wall_s, peak_mib=peak_mb, launches=launches[name])
+        log("detect", f"(d) euroc_eval.run chunk={CHUNK}, vio, "
+                      f"{'YOLO-s in the front end (B = 33, no NMS)' if name == 'chunk_detect' else 'no detector'}: "
+                      f"{res['frames']} frames in {wall_s:.1f} s; device_chunk "
+                      f"{res['stage_ms']['device_chunk']:.1f} ms, frontend "
+                      f"{res['stage_ms']['frontend']:.1f} ms a chunk; ATE Sim3 "
+                      f"{res['ate_rmse_m']:.4f} m; peak {peak_mb:.1f} MiB; launches "
+                      f"{launches[name]}")
+        want = {"corner_rank_maps": LOOP_CHUNKS, "extract_patches_levels": LOOP_CHUNKS,
+                "match_top2_batched": 2 * LOOP_CHUNKS}
+        if launches[name] != want:
+            raise AssertionError(f"{name} launch counts {launches[name]}, expected {want}")
+        if not np.isfinite(est).all():
+            raise AssertionError(f"{name}: a non-finite pose")
+    return launches["chunk_detect"], rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -1473,6 +1929,18 @@ def main() -> int:
         # 8. the online path with every feature on
         launches["online_lc"], online_rec = run_online(cam, tmp, loop_gt,
                                                        eval_rec["variants"]["vio_lc"])
+        # 9. the detector: alone, in the online step, on the moving-object
+        # scene online and in the chunked front end
+        detect_rec = {"alone": run_detect_alone(frames, dev)}
+        launches["detect_online"], detect_rec["online"] = run_detect_online(
+            frames[:NUM_FRAMES], gt[:NUM_FRAMES], imu, cam, slice_rec)
+        launches["detect_chunked"], detect_rec["moving"] = run_detect_moving(cam, tmp)
+    # the kernels at their shapes on the detection paths: the same device
+    # times, the launches of those runs
+    for r in list(records):
+        det_path = {"online": "detect_online", "chunked": "detect_chunked"}.get(r["path"])
+        if det_path and "role" not in r:
+            records.append(dict(r, name=f"{r['name']} (detection on)", path=det_path))
     by_role = {"loop": loop_rec["match_launches"], "online_lc": online_rec["match_launches"]}
     for r in records:
         r["launches"] = (by_role[r["path"]][r["role"]] if "role" in r
@@ -1490,7 +1958,7 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump({"device": name, "nvidia_smi": smi, "kernels": records,
                        "slice": slice_rec, "chunked": chunked_rec, "loop": loop_rec,
-                       "eval": eval_rec, "online": online_rec,
+                       "eval": eval_rec, "online": online_rec, "detect": detect_rec,
                        "build_s": secs, "ptxas": ptxas, "seconds": time.perf_counter() - t_start,
                        **extra}, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

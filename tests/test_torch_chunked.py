@@ -386,9 +386,16 @@ def test_chunk_from_converted_jax_state(run):
 # ------------------------------------------------------------ entry point
 @pytest.mark.parametrize("flag", ["enable_detection"])
 def test_unported_flags_raise(flag):
-    cfg = dataclasses.replace(TCFG, **{flag: True})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-        ChunkedSlam(cfg, chunk=4, device="cpu")
+    """Detection was the last flag ChunkedSlam refused; it is ported now:
+    with dynamic filtering beside it the evaluator builds its batched
+    detector (no NMS) instead of raising, and without filtering none (the
+    front end runs the detector only to filter)."""
+    det = tcfg.DetectorConfig(input_size=64, width_mult=0.25, max_detections=16)
+    cfg = dataclasses.replace(TCFG, detector=det, **{flag: True})
+    assert ChunkedSlam(cfg, chunk=4, device="cpu")._detector is None
+    slam = ChunkedSlam(dataclasses.replace(cfg, enable_dynamic_filtering=True), chunk=4,
+                       device="cpu")
+    assert callable(slam._detector)
 
 
 def test_default_device_needs_a_card():

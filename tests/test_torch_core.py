@@ -182,11 +182,20 @@ def test_pipeline_without_device_needs_cuda(monkeypatch):
 
 @pytest.mark.parametrize("flag", ["enable_detection", "enable_dynamic_filtering"])
 def test_unported_features_raise(flag):
+    """Both flags were refused until the detector was ported; now
+    SlamPipeline runs with either. Built directly, without a detector (the
+    factory builds one), the step's detections are empty, as in the JAX
+    package, and nothing is filtered."""
     from aria_slam_tpu_torch.pipeline.slam_pipeline import SlamPipeline
 
     cfg = dataclasses.replace(TORCH_SMALL_CFG, **{flag: True})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        SlamPipeline(cfg, device="cpu")
+    pipe = SlamPipeline(cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    for k in range(2):
+        pipe.process_frame(rng.uniform(0, 255, (240, 320)).astype(np.float32), 0.2 * k)
+    out = pipe.last_output
+    assert out.detections.boxes.shape == (cfg.detector.max_detections, 4)
+    assert not bool(out.detections.valid.any()) and int(out.num_filtered) == 0
 
 
 def test_kernel_wrappers_take_plain_path_only_on_cpu():

@@ -273,7 +273,8 @@ def test_generate_matches_jax_generator(scene, tmp_path):
     of tests/test_torch_ops.py (99 % of pixels within one grey level,
     mean difference < 0.3). Its PNGs read back with cv2.imread. The
     stressors not ported raise (the occluder is held against the JAX
-    generator in tests/test_torch_drivers.py)."""
+    generator in tests/test_torch_drivers.py, the moving object in
+    tests/test_torch_dynamic.py)."""
     out = str(tmp_path / "port_scene")
     tsynth.generate(out, cam=tcfg.CameraConfig(**CAM_KW), **SCENE)
     for d in ("cam0/data", "imu0", "state_groundtruth_estimate0"):
@@ -292,7 +293,7 @@ def test_generate_matches_jax_generator(scene, tmp_path):
         ref = cv2.imread(os.path.join(scene, "mav0", "cam0", "data", name), cv2.IMREAD_GRAYSCALE)
         diff = np.abs(ours.astype(int) - ref.astype(int))
         assert (diff <= 1).mean() >= 0.99 and diff.mean() < 0.3, (name, diff.mean())
-    for kw in (dict(moving_object=True), dict(noise_std=2.0), dict(motion_blur=3)):
+    for kw in (dict(noise_std=2.0), dict(motion_blur=3)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
             tsynth.generate(str(tmp_path / "x"), num_frames=1, **kw)
 

@@ -403,11 +403,14 @@ def test_port_snapshot_with_loops_continues_identically(run, tmp_path):
 
 @pytest.mark.parametrize("flag", ["enable_detection"])
 def test_loop_closure_with_unported_flags_raises(flag):
-    """Loop closure runs; with detection beside it the port still raises,
-    naming the ROADMAP.md item."""
+    """Loop closure runs; with detection and dynamic filtering beside it
+    (refused until the detector was ported) the evaluator builds its
+    detector and keeps its keyframe DB."""
     ChunkedSlam(TCFG, chunk=CHUNK, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-        ChunkedSlam(dataclasses.replace(TCFG, **{flag: True}), chunk=CHUNK, device="cpu")
+    det = tcfg.DetectorConfig(input_size=64, width_mult=0.25, max_detections=16)
+    slam = ChunkedSlam(dataclasses.replace(TCFG, detector=det, enable_dynamic_filtering=True,
+                                           **{flag: True}), chunk=CHUNK, device="cpu")
+    assert slam._detector is not None and slam.db is not None
 
 
 def test_match_against_slot_equals_pair_by_pair():

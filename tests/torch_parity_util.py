@@ -213,3 +213,37 @@ def chunk_scene(n: int, fps: float = 5.0, period: float = 20.0):
     Rg, okg = gyro_prior.pair_rotations(imu[0], imu[2], ts)
     return np.stack(frames).astype(np.uint8), ts, np.stack(gt), imu, Rg, okg
 
+
+
+def tiny_detector_npz(path: str, seed: int = 3) -> str:
+    """A TINY detector (64 px input, width 0.25) whose head fires the same
+    way in both packages, written by the JAX package's yolo.save_weights:
+    random backbone weights, and the head's last convolutions zero but for
+    their biases, so that every anchor scores sigmoid(3) = 0.953 on class
+    0 (person, a dynamic class; -3 on the others) with a box of 1.5
+    strides on each side of its centre. At a gate of 0.9 every anchor
+    passes with the same score, and the lower-index-first order picks the
+    first max_detections of stride 8 (the top rows of the frame): the
+    detections do not depend on bf16 rounding, so both packages give the
+    same boxes. Returns path."""
+    import flax.traverse_util as tu
+
+    from aria_slam_tpu.config import DetectorConfig
+    from aria_slam_tpu.models import yolo
+
+    cfg = DetectorConfig(input_size=64, width_mult=0.25, depth_mult=0.33)
+    _, v = yolo.init_params(cfg, jax.random.key(seed))
+    flat = {k: np.asarray(x) for k, x in tu.flatten_dict(v).items()}
+    dfl = np.full(16, -8.0, np.float32)
+    dfl[1:3] = 4.0  # expected bin 1.5
+    for k in list(flat):
+        if k[0] == "params" and k[1] == "DetectHead_0" and k[2].startswith("Conv_"):
+            box = int(k[2].split("_")[1]) % 2 == 0  # Conv_0 box, Conv_1 cls, ...
+            if k[-1] == "kernel":
+                flat[k] = np.zeros_like(flat[k])
+            elif box:
+                flat[k] = np.tile(dfl, 4)
+            else:
+                flat[k] = np.where(np.arange(flat[k].shape[0]) == 0, 3.0, -3.0).astype(np.float32)
+    yolo.save_weights(tu.unflatten_dict(flat), path)
+    return path
