@@ -276,6 +276,20 @@ def _mat_to_quat_f32(R: np.ndarray) -> np.ndarray:
     return q / np.maximum(np.sqrt(ss), f(1e-8))[:, None]
 
 
+def box_blur_rows(img: np.ndarray, k: int) -> np.ndarray:
+    """OpenCV's cv2.blur(img, (k, 1)) of a uint8 image in numpy: the mean
+    of k horizontal neighbours, the window from k // 2 left of the pixel
+    (the default anchor), the border mirrored without repeating the edge
+    pixel (BORDER_REFLECT_101), and OpenCV's uint8 rounding of the sum:
+    half up, except at power-of-two widths, where it adds k / 2 + 1
+    before the shift (checked against cv2 at widths 2 to 16)."""
+    w = img.shape[1]
+    pad = np.pad(img.astype(np.int64), ((0, 0), (k // 2, k - 1 - k // 2)), mode="reflect")
+    s = sum(pad[:, j:j + w] for j in range(k))
+    out = (s + k // 2 + 1) // k if k & (k - 1) == 0 else (2 * s + k) // (2 * k)
+    return np.minimum(out, 255).astype(np.uint8)
+
+
 def generate(
     out_dir: str,
     num_frames: int = 60,
@@ -308,17 +322,13 @@ def generate(
     reference's generator. moving_object: a textured panel on its own
     path (moving_object_state, object_size, object_speed) drawn over the
     scene; its ground-truth boxes go to mav0/cam0/boxes.csv (ts_ns, x1,
-    y1, x2, y2), a row for each frame where it is in view. Sensor noise
-    and motion blur are not ported yet and raise."""
+    y1, x2, y2), a row for each frame where it is in view. The
+    photometric stressors, applied in this order: motion_blur, a
+    horizontal box blur of that width in px (box_blur_rows, pan blur);
+    exposure_drift; noise_std, per-pixel Gaussian sensor noise in grey
+    levels, drawn from the occluder's generator after its draw of the
+    same frame."""
     from aria_slam_tpu_torch.io.euroc import encode_png_gray8
-
-    unported = {"noise_std": (noise_std > 0.0, "queue 1 item 11"),
-                "motion_blur": (motion_blur > 1, "queue 1 item 11")}
-    for name, (asked, item) in unported.items():
-        if asked:
-            raise NotImplementedError(
-                f"generate({name}=...) is not ported to aria_slam_tpu_torch yet; "
-                f"see ROADMAP.md {item} (io/synthetic_scene.py stressors)")
 
     cam = cam or CameraConfig(k1=0.0, k2=0.0, p1=0.0, p2=0.0)  # no distortion
     tex = _texture(seed=seed) if structure != "layers" else None
@@ -357,9 +367,13 @@ def generate(
             if x2 > x1 and y2 > y1:
                 img = img.copy()
                 img[y1:y2, x1:x2] = int(occ_rng.uniform(35, 55))
+        if motion_blur > 1:
+            img = box_blur_rows(img, motion_blur)
         if exposure_drift > 0.0:
             gain = 1.0 + exposure_drift * np.sin(2 * np.pi * t / period)
             img = np.clip(img.astype(np.float32) * gain, 0, 255)
+        if noise_std > 0.0:
+            img = np.clip(img.astype(np.float32) + occ_rng.normal(0, noise_std, img.shape), 0, 255)
         fname = f"{ts_ns}.png"
         with open(os.path.join(cam_data, fname), "wb") as f:
             f.write(encode_png_gray8(img.astype(np.uint8)))

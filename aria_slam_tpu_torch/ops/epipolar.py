@@ -209,20 +209,29 @@ def _tangent_basis(t):
     return torch.stack([b1, b2], -1)
 
 
+def _apply(E: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """E (..., 3, 3) times x (..., 3), broadcast: on the card a product and
+    a sum, so that a row rounds the same in any batch (ops/linalg.py); on
+    the CPU a matmul, as the parity tests hold it."""
+    if E.is_cuda:
+        return (E * x[..., None, :]).sum(-1)
+    return (E @ x[..., None])[..., 0]
+
+
 def polish_pose_sampson(R, t, p1, p2, w, thresh, iters: int = 8,
                         damping: float = 1e-4):
     """Gauss-Newton refinement of (R, t) on the 5-dof essential manifold
     minimising Huber-weighted Sampson error; Jacobians by autodiff
     (core/autodiff.py), a diverging step is rejected."""
     huber_delta = torch.sqrt(torch.as_tensor(thresh, dtype=p1.dtype, device=p1.device))
-    x1 = _homog(p1)[..., None]   # (..., N, 3, 1)
-    x2 = _homog(p2)[..., None]
+    x1 = _homog(p1)   # (..., N, 3)
+    x2 = _homog(p2)
     eye5 = torch.eye(5, dtype=p1.dtype, device=p1.device)
 
     def signed_residuals(E):  # one E per correspondence (..., N, 3, 3), or (..., 1, 3, 3)
-        Ex1 = (E @ x1)[..., 0]
-        Etx2 = (E.transpose(-1, -2) @ x2)[..., 0]
-        num = torch.sum(x2[..., 0] * Ex1, -1)
+        Ex1 = _apply(E, x1)
+        Etx2 = _apply(E.transpose(-1, -2), x2)
+        num = torch.sum(x2 * Ex1, -1)
         den = Ex1[..., 0] ** 2 + Ex1[..., 1] ** 2 + Etx2[..., 0] ** 2 + Etx2[..., 1] ** 2
         return num / torch.sqrt(torch.clamp(den, min=1e-12))
 

@@ -6,11 +6,36 @@ Cholesky, regularised inverse iteration, cyclic Jacobi), so iteration
 counts, eigenvector signs and the near-degenerate behaviour RANSAC
 relies on match. torch.linalg's LAPACK/cuSOLVER routines would pick
 other signs and other orders.
+
+The triangular steps' short contractions go through `dot` and `matvec`.
+On the card they are a product and a sum over the last axis: einsum runs
+them as a batched GEMM whose kernel cuBLAS picks by the batch count, so
+one system rounded differently in another batch (a sequence's RANSAC at
+S = 4 sequences against S = 1 in eval/multi_eval.py, found with
+tools/multi_batch_diff.py), while the sum's order depends only on the
+length of the summed axis. On the CPU they stay einsum, whose rounding
+the parity tests hold against the reference.
 """
 
 from __future__ import annotations
 
 import torch
+
+
+def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum(a * b) over the short last axis: (..., k), (..., k) -> (...),
+    the same rounding for a row in any batch on the card."""
+    if a.is_cuda:
+        return (a * b).sum(-1)
+    return torch.einsum("...k,...k->...", a, b)
+
+
+def matvec(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """M (..., m, k) times v (..., k) -> (..., m), k short, the same
+    rounding for a row in any batch on the card."""
+    if M.is_cuda:
+        return (M * v[..., None, :]).sum(-1)
+    return torch.einsum("...ik,...k->...i", M, v)
 
 
 def cholesky_unrolled(M: torch.Tensor) -> torch.Tensor:
@@ -23,7 +48,7 @@ def cholesky_unrolled(M: torch.Tensor) -> torch.Tensor:
         if j > 0:
             Lj = torch.stack([c[..., j] for c in cols], -1)   # (..., j)
             Lprev = torch.stack(cols, -1)                    # (..., n, j)
-            s = s - torch.einsum("...ik,...k->...i", Lprev, Lj)
+            s = s - matvec(Lprev, Lj)
         d = torch.sqrt(torch.clamp(s[..., j], min=1e-20))
         col = s / d[..., None]
         col = torch.where(row_idx >= j, col, 0.0)  # zero the strict upper part
@@ -38,7 +63,7 @@ def solve_lower(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for i in range(n):
         s = b[..., i]
         if i > 0:
-            s = s - torch.einsum("...k,...k->...", L[..., i, :i], torch.stack(ys, -1))
+            s = s - dot(L[..., i, :i], torch.stack(ys, -1))
         ys.append(s / L[..., i, i])
     return torch.stack(ys, -1)
 
@@ -50,8 +75,7 @@ def solve_upper_t(L: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     for i in reversed(range(n)):
         s = y[..., i]
         if i < n - 1:
-            s = s - torch.einsum("...k,...k->...", L[..., i + 1:, i],
-                                 torch.stack(xs[i + 1:], -1))
+            s = s - dot(L[..., i + 1:, i], torch.stack(xs[i + 1:], -1))
         xs[i] = s / L[..., i, i]
     return torch.stack(xs, -1)
 

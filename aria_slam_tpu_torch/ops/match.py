@@ -5,9 +5,9 @@ Every kNN-2 goes through the match kernel (ops/cuda/match_kernel.py),
 except the cross-checked form, which needs the whole distance matrix
 and builds it with `hamming_matrix`, as the reference does. Loop
 closure's candidate scores and verify matches use the kernel too
-(backend/loop_closure.py).
-`match_scores_vs_database` serves the sharded keyframe DB and waits for
-parallel/sharded_db.py (ROADMAP.md queue 1 item 12).
+(backend/loop_closure.py), and so does `match_scores_vs_database`, the
+one-query-against-the-whole-DB scores of the sharded keyframe DB
+(parallel/sharded_db.py).
 """
 
 from __future__ import annotations
@@ -63,3 +63,22 @@ def match_batched(query: Features, train: Features, ratio: float = 0.75) -> Matc
     return Matches(query_idx=qidx, train_idx=best_idx.to(torch.int32),
                    distance=best.float(),
                    valid=ratio_gate(query.valid, best, second, ratio))
+
+
+def match_scores_vs_database(desc_q: torch.Tensor, valid_q: torch.Tensor,
+                             db_desc: torch.Tensor, db_valid: torch.Tensor,
+                             ratio: float = 0.7) -> torch.Tensor:
+    """Place-recognition scores of one query frame against every keyframe
+    of a DB in one match kernel launch: desc_q (F, B) int8, valid_q (F,),
+    db_desc (N, F_t, B) int8, db_valid (N, F_t) -> (N,) float32, each the
+    number of the query's ratio-test survivors against that keyframe over
+    the number of valid queries. The query is repeated for each keyframe
+    (the kernel takes contiguous inputs): a copy of N * F * B bytes, 262
+    MB at N = 512 and F = 2000."""
+    n = db_desc.shape[0]
+    q = desc_q.expand(n, *desc_q.shape).contiguous()
+    best, second, _ = match_top2_batched(q, db_desc, db_valid)
+    del q
+    good = ratio_gate(valid_q[None], best, second, ratio)
+    num_q = torch.clamp(valid_q.float().sum(), min=1.0)
+    return good.float().sum(1) / num_q

@@ -148,6 +148,36 @@ Phases, one line each; any failure raises and exits non-zero:
               YOLO-s in the front end (B = 33, no NMS) and without:
               device_chunk ms, launches (corner 8, patch 8, match 16),
               peak memory.
+10. multi  -- generate() writes four full-width sweeps of 65 frames (each
+              its own period and seed), the pin probe's rotloop and the
+              photometric stress scene, in parallel processes.
+              eval.multi_eval.run_scenes at chunk 16 on a one-card NCCL
+              mesh (parallel/mesh.single_process_group) with S = 4 in one
+              batched program a round (B = 68 frames an extract, N = 64
+              pairs a match launch), counts set to 0 just before it; then
+              the same four sequences one at a time (S = 1), back to back.
+              Prints ms a steady round (after the first) and its stages,
+              steady sequence-frames a second at S = 4 against S = 1,
+              each run's first round and start-up apart, the whole runs'
+              times, launches a round, peak memory and
+              every Sim3 ATE (fails unless launches are 1 / 1 / 1 a round,
+              each sequence's poses at S = 4 equal its poses alone, and
+              every ATE is finite and < 0.35 m). Then the three
+              kernels at B = 68 and N = 64 against their plain versions.
+11. db     -- parallel/sharded_db.sharded_topk_scores on the same mesh: one
+              query against a 512-keyframe DB at F = 2000 with two planted
+              revisits (one match launch at N = 512), against
+              ops/match.match_scores_vs_database and the plain route on
+              the card (same top-5, equal scores slot for slot, the
+              planted revisits found); its time, peak memory (the query's
+              repeat for every keyframe beside the DB), and the match
+              kernel at N = 512 against its plain version (best, second
+              and best index equal element by element).
+12. aux    -- eval.imu_benchmark.run(10 s) on the card (mean error < 5 cm),
+              eval.pin_probe.run(full_res=True, frames=60) (each
+              estimator's median ratio; finite), and the stressed scene
+              (noise 6, exposure drift 0.3, blur 3 px, 33 frames) through
+              euroc_eval.run at chunk 16 (Sim3 ATE < 0.5 m).
 
 The line before the last holds the card's name and power limit as
 nvidia-smi reports them, the one before it the kernels' JSON record (each
@@ -157,7 +187,8 @@ path's two shapes, the verify batch on that run's own inputs, with the
 launches counted inside lc_query and verify_batch, at the online loop
 closure's two, with the launches of the online phase, and each kernel at
 the online and chunked shapes once more with the launches of the detect
-phase's runs (b) and (d)), and the last line is
+phase's runs (b) and (d), and the kernels at the multi and db phases'
+shapes with those phases' launches), and the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -1867,6 +1898,398 @@ def run_detect_moving(cam, tmp):
     return launches["chunk_detect"], rec
 
 
+# ------------------------------------------------------ multi, db, aux
+MULTI_S = 4              # sequences in one batched front end
+MULTI_FRAMES = 65        # a sequence: 4 chunk rounds of 16
+MULTI_CHUNK = 16
+MULTI_PERIODS = (10.0, 12.0, 14.0, 16.0)
+DB_KEYFRAMES = 512       # the keyframe DB of benchmark_config(full_res=True)
+DB_FEATURES = 2000
+DB_TOP_K = 5
+PIN_FRAMES = 60
+STRESS_FRAMES = 33
+GENERATE_PROCESSES = 6
+
+
+def generate_scenes(cam, tmp):
+    """Every scene of phases 10 to 12, written by the port's generate() in
+    parallel child processes: the four sweeps of the multi phase (each its
+    own period and seed), the pin probe's rotloop and the photometric
+    stress scene. Returns their directories."""
+    import concurrent.futures
+    import multiprocessing
+
+    from aria_slam_tpu_torch.io import synthetic_scene
+
+    jobs = {f"seq{i}": dict(num_frames=MULTI_FRAMES, fps=FPS, cam=cam, depth=4.0, traj="sweep",
+                            period=period, seed=i)
+            for i, period in enumerate(MULTI_PERIODS)}
+    jobs["pin"] = dict(num_frames=PIN_FRAMES, fps=10.0, cam=cam, depth=4.0, traj="rotloop",
+                       period=20.0)
+    jobs["stress"] = dict(num_frames=STRESS_FRAMES, fps=10.0, cam=cam, depth=4.0, traj="sweep",
+                          period=10.0, noise_std=6.0, exposure_drift=0.3, motion_blur=3)
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(GENERATE_PROCESSES, mp_context=ctx) as pool:
+        futs = {name: pool.submit(synthetic_scene.generate, f"{tmp}/{name}", **kw)
+                for name, kw in jobs.items()}
+        dirs = {name: f.result() for name, f in futs.items()}
+    log("multi", f"generate(): {len(jobs)} scenes ({MULTI_S} x {MULTI_FRAMES} sweep frames, "
+                 f"{PIN_FRAMES} rotloop, {STRESS_FRAMES} stressed) at {cam.width}x{cam.height} "
+                 f"in {time.perf_counter() - t0:.1f} s on {GENERATE_PROCESSES} processes")
+    return dirs
+
+
+def multi_records(frames, cfg, dev):
+    """The three kernels at the multi phase's shapes, each against its
+    plain version on the card: corner and patch at B = S * (C+1) = 68
+    frames (one extract of a chunk round), match at the round's N = S * C
+    = 64 consecutive pairs of those frames' features."""
+    from aria_slam_tpu_torch.ops import brief, orb
+    from aria_slam_tpu_torch.ops.cuda import corner_kernel as ck
+    from aria_slam_tpu_torch.ops.cuda import match_kernel as mk
+    from aria_slam_tpu_torch.ops.cuda import patch_kernel as pk
+
+    s, cp1 = frames.shape[:2]
+    flat = list(frames.reshape(s * cp1, *frames.shape[2:]))
+    b = len(flat)
+    thr, hb, radius = cfg.fast_threshold, cfg.harris_block_size, brief.PATCH_R
+    recs = []
+    # corner: bit-equal on every level
+    levels = pyramid_levels(flat, cfg, dev)
+    got = ck.corner_rank_maps(levels, thr, hb)
+    for lvl, g in zip(levels, got):
+        if not torch.equal(g, ck.corner_rank_map_plain(lvl, thr, hb)):
+            raise AssertionError(f"corner B={b} {tuple(lvl.shape)}: not bit-equal")
+    px = sum(lvl.numel() for lvl in levels)
+    b_ms, by = bound(2 * 4 * px, corner_ops(levels, got, thr, hb // 2), F32_OPS_PER_MS)
+    del got
+    recs.append(dict(name=f"corner_rank_map B={b} (multi)", path="multi", route="cuda",
+                     source="aria_slam_tpu_torch/csrc/corner_kernel.cu",
+                     replaces="aria_slam_tpu/ops/pallas/corner_kernel.py:125",
+                     wrapper="corner_rank_maps", max_abs_err=0.0, library_ms=None,
+                     ms=graph_ms(lambda: ck.corner_rank_maps(levels, thr, hb), iters=5,
+                                 replays=4),
+                     launch_ms=cuda_ms(lambda: ck.corner_rank_maps(levels, thr, hb), iters=5),
+                     plain_ms=graph_ms(lambda: [ck.corner_rank_map_plain(lvl, thr, hb)
+                                                for lvl in levels], iters=1, replays=2),
+                     bound_ms=b_ms, bound_by=by))
+    del levels
+    torch.cuda.empty_cache()
+    # patch: exact, all levels in one launch
+    inputs = level_inputs(flat, cfg, dev)
+    blurred = [img for _, img, _ in inputs]
+    xys = [xy for _, _, xy in inputs]
+    got = pk.extract_patches_levels(blurred, xys, radius)
+    if not torch.equal(got, pk.extract_patches_levels_plain(blurred, xys, radius)):
+        raise AssertionError(f"patch B={b}: differs from the plain version")
+    del got
+    indices = [pk.patch_indices(img.shape, xy, radius) for img, xy in zip(blurred, xys)]
+    bi = torch.arange(b, device=dev)[:, None, None, None]
+    b_ms, by = bound(patch_bytes(blurred, xys, indices), 0.0, F32_OPS_PER_MS)
+    reps = dict(iters=3, replays=3)
+    recs.append(dict(name=f"extract_patches B={b} (multi)", path="multi", route="cuda",
+                     source="aria_slam_tpu_torch/csrc/patch_kernel.cu",
+                     replaces="aria_slam_tpu/ops/pallas/patch_kernel.py:60",
+                     wrapper="extract_patches_levels", max_abs_err=0.0,
+                     ms=graph_ms(lambda: pk.extract_patches_levels(blurred, xys, radius), **reps),
+                     launch_ms=cuda_ms(lambda: pk.extract_patches_levels(blurred, xys, radius),
+                                       iters=5),
+                     plain_ms=graph_ms(lambda: pk.extract_patches_levels_plain(blurred, xys,
+                                                                               radius), **reps),
+                     library_ms=graph_ms(lambda: [img[bi, yy, xx] for img, (yy, xx)
+                                                  in zip(blurred, indices)], **reps),
+                     bound_ms=b_ms, bound_by=by))
+    del inputs, blurred, xys, indices
+    torch.cuda.empty_cache()
+    # match: the round's consecutive pairs, (q, i) -> (q, i + 1)
+    feats = orb.extract_batch(torch.from_numpy(np.stack(flat)).to(dev).float(), cfg)
+    desc = feats.desc.reshape(s, cp1, *feats.desc.shape[1:])
+    valid = feats.valid.reshape(s, cp1, -1)
+    q = desc[:, 1:].reshape(s * (cp1 - 1), *desc.shape[2:]).contiguous()
+    t = desc[:, :-1].reshape(s * (cp1 - 1), *desc.shape[2:]).contiguous()
+    v = valid[:, :-1].reshape(s * (cp1 - 1), -1).contiguous()
+    del feats
+    err = max(int((g.long() - w.long()).abs().max())
+              for g, w in zip(mk.match_top2_batched(q, t, v), mk.match_top2_plain(q, t, v)))
+    torch.cuda.empty_cache()
+    if err:
+        raise AssertionError(f"match N={q.shape[0]} (multi): max abs error {err}")
+    b_ms, by = match_bound(q, t, v)
+    recs.append(dict(name=f"match_top2 N={q.shape[0]} (multi)", path="multi", **MATCH_COMMON,
+                     max_abs_err=float(err),
+                     ms=graph_ms(lambda: mk.match_top2_batched(q, t, v), iters=5, replays=4),
+                     launch_ms=cuda_ms(lambda: mk.match_top2_batched(q, t, v), iters=10),
+                     plain_ms=graph_ms(lambda: mk.match_top2_plain(q, t, v), iters=1, replays=2),
+                     bound_ms=b_ms, bound_by=by))
+    torch.cuda.empty_cache()
+    log("multi", "kernels at the round's shapes, each equal to its plain version: "
+        + "; ".join(f"{r['name']} {r['ms']:.4f} ms (bound {r['bound_ms']:.5f} ms, "
+                    f"{r['bound_by']}; with launch cost {r['launch_ms']:.4f} ms; plain "
+                    f"{r['plain_ms']:.4f} ms"
+                    + (f"; indexing gathers {r['library_ms']:.4f} ms" if r.get("library_ms")
+                       else "") + ")" for r in recs))
+    return recs
+
+
+def run_multi(dirs, mesh):
+    """Phase 10: multi_eval.run_scenes over the four sweeps at chunk 16 as
+    ONE batched program a round (S = 4) on the one-card mesh, the counts
+    set to 0 just before it and read just after; then the same sequences
+    one at a time (S = 1), back to back. Gates: each sequence's poses
+    equal at S = 4 and alone, every ATE finite and < 0.35 m. Then the
+    kernels at the round's shapes."""
+    from aria_slam_tpu_torch.config import OrbConfig, PipelineConfig
+    from aria_slam_tpu_torch.eval import multi_eval
+    from aria_slam_tpu_torch.io import euroc
+    from aria_slam_tpu_torch.ops.cuda import corner_kernel, match_kernel, patch_kernel
+    from aria_slam_tpu_torch.utils.profiling import StageTimer
+
+    kernels = (corner_kernel.corner_rank_maps, patch_kernel.extract_patches_levels,
+               match_kernel.match_top2_batched)
+    seqs = [dirs[f"seq{i}"] for i in range(MULTI_S)]
+    cfg = PipelineConfig(enable_loop_closure=False, enable_mapping=False, enable_fusion=False,
+                         enable_detection=False)
+    rounds = -(-(MULTI_FRAMES - 1) // MULTI_CHUNK)
+
+    def one(batch, sampler=None):
+        timer = StageTimer(device=mesh.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = multi_eval.run_scenes(batch, cfg, chunk=MULTI_CHUNK, mesh=mesh, verbose=False,
+                                    timer=timer, keep_trajectories=True, sampler=sampler)
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3, timer.summary()
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    res4, ms4, stages4 = one(seqs)
+    launches = {k.__name__: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    # each sequence alone draws from the generator it had in the batch
+    singles = [one([d], multi_eval.SequenceSampler([torch.Generator(device=mesh.device)
+                                                    .manual_seed(multi_eval.sequence_seed(0, q))]))
+               for q, d in enumerate(seqs)]
+    ms1 = sum(m for _, m, _ in singles)
+    seq_frames = MULTI_S * MULTI_FRAMES
+    ates4 = [r["ate_rmse_m"] for r in res4]
+    ates1 = [r[0]["ate_rmse_m"] for r, _, _ in singles]
+    traj_diff = max(float(np.abs(r4["trajectory"] - r1[0]["trajectory"]).max())
+                    for r4, (r1, _, _) in zip(res4, singles))
+    front1 = [st["frontend"]["mean_ms"] for _, _, st in singles]
+
+    def split(ms, st):
+        """(steady ms a round, first round ms, start-up and scoring ms):
+        the rounds after the first, the first, and the rest of the run."""
+        r = st["round"]
+        return r["mean_ms"], r["warm_ms"], ms - r["warm_ms"] - r["total_ms"]
+
+    steady4, first4, start4 = split(ms4, stages4)
+    parts1 = [split(m, st) for _, m, st in singles]
+    steady1 = sum(p[0] for p in parts1)  # one steady round of each sequence
+    pair_frames = MULTI_S * MULTI_CHUNK  # sequence-frames a round of all four
+    log("multi", f"run_scenes S={MULTI_S} x {MULTI_FRAMES} frames at chunk {MULTI_CHUNK} "
+                 f"({rounds} rounds, {mesh.shape} NCCL mesh). Steady rounds (after the "
+                 f"first): S={MULTI_S} {steady4:.1f} ms a round, "
+                 f"{1e3 * pair_frames / steady4:.2f} sequence-frames a second; S=1 "
+                 f"{', '.join(f'{p[0]:.1f}' for p in parts1)} ms a round, "
+                 f"{1e3 * pair_frames / steady1:.2f} sequence-frames a second one after "
+                 f"another; S={MULTI_S} / S=1 steady throughput {steady1 / steady4:.3f}x. "
+                 f"First round S={MULTI_S} {first4:.1f} ms, S=1 "
+                 f"{', '.join(f'{p[1]:.1f}' for p in parts1)} ms; start-up and scoring "
+                 f"S={MULTI_S} {start4:.1f} ms, S=1 {', '.join(f'{p[2]:.1f}' for p in parts1)} "
+                 f"ms. Whole runs (start-up included): S={MULTI_S} {ms4:.1f} ms, "
+                 f"{1e3 * seq_frames / ms4:.2f} sequence-frames a second; S=1 {ms1:.1f} ms in "
+                 f"all, {1e3 * seq_frames / ms1:.2f}; {ms1 / ms4:.3f}x. Stages S={MULTI_S}, "
+                 f"steady mean ms a round (first): "
+                 + "; ".join(f"{n} {v['mean_ms']:.1f} ({v['warm_ms']:.1f})"
+                             for n, v in sorted(stages4.items()))
+                 + f"; S=1 frontend {', '.join(f'{m:.1f}' for m in front1)} ms a round; Sim3 "
+                   f"ATE S={MULTI_S} " + ", ".join(f"{a:.4f}" for a in ates4) + " m, S=1 "
+                 + ", ".join(f"{a:.4f}" for a in ates1)
+                 + f" m (poses differ by {traj_diff:.3g} at most); launches {launches} "
+                   f"({ {k: v / rounds for k, v in launches.items()} } a round); peak "
+                   f"{peak:.1f} MiB")
+    want = {"corner_rank_maps": rounds, "extract_patches_levels": rounds,
+            "match_top2_batched": rounds}
+    if launches != want:
+        raise AssertionError(f"multi launch counts {launches}, expected {want}")
+    if traj_diff != 0.0:
+        raise AssertionError(f"multi: a sequence's poses at S={MULTI_S} and alone differ by "
+                             f"{traj_diff} (the same generators must give the same poses)")
+    for r in res4 + [r[0] for r, _, _ in singles]:
+        if r["frames"] != MULTI_FRAMES or not np.isfinite(r["trajectory"]).all():
+            raise AssertionError(f"multi: {r['sequence']} has {r['frames']} poses or a "
+                                 "non-finite pose")
+        if not r["ate_rmse_m"] < 0.35:
+            raise AssertionError(f"multi: {r['sequence']} Sim3 ATE {r['ate_rmse_m']} m "
+                                 "(limit 0.35 m)")
+    frames = np.stack([np.stack([euroc.load_image(p) for p in euroc.load(d).image_paths[
+        :MULTI_CHUNK + 1]]) for d in seqs])
+    recs = multi_records(frames, OrbConfig(), mesh.device)
+    rec = dict(steady_round_ms=steady4, steady_round_ms_s1=[p[0] for p in parts1],
+               steady_seq_frames_per_s=1e3 * pair_frames / steady4,
+               steady_seq_frames_per_s_s1=1e3 * pair_frames / steady1,
+               first_round_ms=first4, first_round_ms_s1=[p[1] for p in parts1],
+               startup_ms=start4, startup_ms_s1=[p[2] for p in parts1],
+               ms=ms4, stages=stages4, ms_s1=ms1,
+               frontend_ms_s1=front1, seq_frames_per_s=1e3 * seq_frames / ms4,
+               seq_frames_per_s_s1=1e3 * seq_frames / ms1, ate_m=ates4, ate_m_s1=ates1,
+               pose_diff_s4_s1=traj_diff, peak_mib=peak,
+               launches_a_round={k: v / rounds for k, v in launches.items()})
+    return launches, rec, recs
+
+
+def run_db(mesh):
+    """Phase 11: a 512-keyframe DB at F = 2000 with two planted revisits
+    (tests/test_sharded_db.py's construction at full size) queried with
+    sharded_topk_scores on the one-card mesh, the counts set to 0 just
+    before it; against match_scores_vs_database and the plain route on
+    the card. Gates: the same top-5 with equal scores slot for slot, the
+    planted revisits among them. Then the match kernel at N = 512 against
+    its plain version."""
+    from aria_slam_tpu_torch.ops import match as match_ops
+    from aria_slam_tpu_torch.ops.cuda import match_kernel as mk
+    from aria_slam_tpu_torch.ops.topk import top_k_stable
+    from aria_slam_tpu_torch.parallel.sharded_db import sharded_topk_scores
+
+    dev, n, f = mesh.device, DB_KEYFRAMES, DB_FEATURES
+    g = torch.Generator(device=dev).manual_seed(11)
+    db = torch.randint(0, 2, (n, f, 256), generator=g, device=dev, dtype=torch.int8)
+    dbv = torch.rand((n, f), generator=g, device=dev) < 0.9
+    q = torch.randint(0, 2, (f, 256), generator=g, device=dev, dtype=torch.int8)
+    qv = torch.rand((f,), generator=g, device=dev) < 0.9
+    hits = (n // 6, n // 2 + 5)
+    for hit, share in zip(hits, (0.8, 0.6)):  # of the query's descriptors, as the test's
+        share = int(share * f)
+        db[hit, :share] = q[:share]
+        dbv[hit, :share] = True
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**20
+    mk.match_top2_batched.launches = 0
+    t0 = time.perf_counter()
+    vals, idx = sharded_topk_scores(mesh, q, qv, db, dbv, 0.7, DB_TOP_K)
+    torch.cuda.synchronize()
+    query_ms = (time.perf_counter() - t0) * 1e3
+    launches = {"match_top2_batched": mk.match_top2_batched.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    scores = match_ops.match_scores_vs_database(q, qv, db, dbv, 0.7)
+    rep = q.expand(n, f, 256).contiguous()
+    # the kernel at N = 512 against the plain route in two halves of 256
+    # keyframes (its temporaries hold about 20 GB a half): best, second and
+    # best index equal element by element
+    kern = mk.match_top2_batched(rep, db, dbv)
+    plain, err = [], 0
+    for lo in (0, n // 2):
+        half = mk.match_top2_plain(rep[lo:lo + n // 2], db[lo:lo + n // 2], dbv[lo:lo + n // 2])
+        err = max([err] + [int((k[lo:lo + n // 2].long() - w.long()).abs().max())
+                           for k, w in zip(kern, half)])
+        best, second, _ = half
+        plain.append(match_ops.ratio_gate(qv[None], best, second, 0.7).float().sum(1)
+                     / torch.clamp(qv.float().sum(), min=1.0))
+        del half, best, second
+        torch.cuda.empty_cache()
+    del kern
+    if err:
+        raise AssertionError(f"match N={n} (db query): max abs error {err} against the plain "
+                             "version")
+    plain = torch.cat(plain)
+    pv, pi = top_k_stable(plain, DB_TOP_K)
+    got = [x.cpu().numpy() for x in (vals, idx, scores, pv, pi, plain)]
+    vals, idx, scores, pv, pi, plain = got
+    log("db", f"sharded_topk_scores on {mesh.shape}: {n} keyframes x {f} features, one query: "
+              f"{query_ms:.2f} ms (first call); top-{DB_TOP_K} {idx.tolist()} scores "
+              f"{[round(float(x), 4) for x in vals]}; plain route {pi.tolist()}; planted "
+              f"{list(hits)}; peak {peak:.1f} MiB ({base:.1f} MiB held before: the DB "
+              f"{db.numel() / 2**20:.1f} MiB; the query repeated for every keyframe "
+              f"{rep.numel() / 2**20:.1f} MiB); launches {launches}")
+    if not (np.array_equal(idx, pi) and np.array_equal(vals, pv)
+            and np.array_equal(vals, scores[idx]) and np.array_equal(scores, plain)):
+        raise AssertionError("db: the sharded top-k differs from the single-device scores or "
+                             "the plain route")
+    if not set(hits) <= set(idx.tolist()):
+        raise AssertionError(f"db: the planted revisits {hits} are not in the top-k {idx}")
+    if launches != {"match_top2_batched": 1}:
+        raise AssertionError(f"db launch counts {launches}, expected one match launch")
+    torch.cuda.synchronize()
+    qms = cuda_ms(lambda: sharded_topk_scores(mesh, q, qv, db, dbv, 0.7, DB_TOP_K), iters=5)
+    b_ms, by = match_bound(rep, db, dbv)
+    plain_ms = sum(cuda_ms(lambda: mk.match_top2_plain(rep[lo:lo + n // 2], db[lo:lo + n // 2],
+                                                       dbv[lo:lo + n // 2]),
+                           iters=1, warmup=1, repeats=1) for lo in (0, n // 2))
+    torch.cuda.empty_cache()
+    rec = dict(name=f"match_top2 N={n} (db query)", path="db", **MATCH_COMMON,
+               max_abs_err=float(err),
+               ms=graph_ms(lambda: mk.match_top2_batched(rep, db, dbv), iters=3, replays=3),
+               launch_ms=cuda_ms(lambda: mk.match_top2_batched(rep, db, dbv), iters=5),
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=by)
+    log("db", f"the whole query {qms:.3f} ms a call; match kernel N={n} {rec['ms']:.4f} ms "
+              f"(bound {b_ms:.5f} ms, {by}), with launch cost {rec['launch_ms']:.4f} ms, plain "
+              f"{plain_ms:.2f} ms (two halves, once)")
+    del rep, db, dbv
+    torch.cuda.empty_cache()
+    return launches, dict(query_ms_first=query_ms, query_ms=qms, peak_mib=peak,
+                          held_mib=base, top_k=idx.tolist(), scores=vals.tolist()), rec
+
+
+def run_aux(dirs, cam, tmp, dev):
+    """Phase 12: imu_benchmark.run(10 s) on the card (gate: mean error <
+    5 cm, tests/test_components.py's), pin_probe.run(full_res=True,
+    frames=60) (gate: every estimator finite), and the photometric stress
+    scene (noise 6, exposure drift 0.3, blur 3 px; 33 frames) through
+    euroc_eval.run at chunk 16 (gate: Sim3 ATE < 0.5 m,
+    tests/test_robustness.py's)."""
+    from aria_slam_tpu_torch.config import (
+        LoopClosureConfig, MapperConfig, PipelineConfig, PoseGraphConfig,
+    )
+    from aria_slam_tpu_torch.eval import euroc_eval, imu_benchmark, pin_probe
+
+    rec = {}
+    t0 = time.perf_counter()
+    imu = imu_benchmark.run(10.0, verbose=False, device=dev)
+    rec["imu"] = dict(imu, ms=(time.perf_counter() - t0) * 1e3)
+    log("aux", f"imu_benchmark 10 s (2000 IMU samples + 200 visual updates) on the card: mean "
+               f"error {imu['mean_err_m'] * 100:.3f} cm, max {imu['max_err_m'] * 100:.3f} cm, "
+               f"{rec['imu']['ms']:.0f} ms")
+    if not imu["mean_err_m"] < 0.05:
+        raise AssertionError(f"imu_benchmark mean error {imu['mean_err_m']} m (limit 0.05 m)")
+
+    t0 = time.perf_counter()
+    pin = pin_probe.run(True, PIN_FRAMES, dirs["pin"], verbose=False, device=dev)
+    rec["pin"] = dict(pin, ms=(time.perf_counter() - t0) * 1e3)
+    log("aux", f"pin_probe full resolution, {pin['pairs']} pairs ({pin['pairs_ok']} ok) in "
+               f"{rec['pin']['ms']:.0f} ms; median ratios: "
+               + ", ".join(f"{k} {v['median_ratio']}" for k, v in pin["estimators"].items()))
+    if not all(np.isfinite(v[s]) for v in pin["estimators"].values()
+               for s in ("geomean_ratio", "log_std", "median_ratio")):
+        raise AssertionError(f"pin_probe: a non-finite estimator {pin['estimators']}")
+
+    cfg = PipelineConfig(
+        camera=cam,
+        loop=LoopClosureConfig(max_keyframes=192, min_frames_between=90, min_score=0.3,
+                               min_matches=40),
+        mapper=MapperConfig(max_points=60000, pair_lag=4),
+        pose_graph=PoseGraphConfig(max_nodes=192, max_edges=512, lm_iterations=5,
+                                   cg_iterations=32),
+        enable_fusion=False)
+    t0 = time.perf_counter()
+    res = euroc_eval.run(dirs["stress"], out_dir=f"{tmp}/stress_out", config=cfg, verbose=False,
+                         chunk=16, device=dev)
+    rec["stress"] = dict(ate_m=res["ate_rmse_m"], ms=(time.perf_counter() - t0) * 1e3)
+    log("aux", f"photometric stress ({STRESS_FRAMES} frames, noise 6, exposure drift 0.3, blur "
+               f"3 px) through euroc_eval.run at chunk 16: Sim3 ATE {res['ate_rmse_m']:.4f} m "
+               f"in {rec['stress']['ms']:.0f} ms")
+    if not res["ate_rmse_m"] < 0.5:
+        raise AssertionError(f"photometric stress Sim3 ATE {res['ate_rmse_m']} m (limit 0.5 m)")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -1935,6 +2358,18 @@ def main() -> int:
         launches["detect_online"], detect_rec["online"] = run_detect_online(
             frames[:NUM_FRAMES], gt[:NUM_FRAMES], imu, cam, slice_rec)
         launches["detect_chunked"], detect_rec["moving"] = run_detect_moving(cam, tmp)
+    # 10. multi, 11. db (both on a one-card NCCL mesh), 12. aux
+    from aria_slam_tpu_torch.parallel import mesh as mesh_lib
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_multi_") as tmp:
+        dirs = generate_scenes(cam, tmp)
+        with mesh_lib.single_process_group("nccl"):
+            mesh = mesh_lib.make_mesh(1, 1)
+            launches["multi"], multi_rec, multi_recs = run_multi(dirs, mesh)
+            records += multi_recs
+            launches["db"], db_rec, db_kernel = run_db(mesh)
+            records.append(db_kernel)
+        aux_rec = run_aux(dirs, cam, tmp, dev)
     # the kernels at their shapes on the detection paths: the same device
     # times, the launches of those runs
     for r in list(records):
@@ -1959,6 +2394,7 @@ def main() -> int:
             json.dump({"device": name, "nvidia_smi": smi, "kernels": records,
                        "slice": slice_rec, "chunked": chunked_rec, "loop": loop_rec,
                        "eval": eval_rec, "online": online_rec, "detect": detect_rec,
+                       "multi": multi_rec, "db": db_rec, "aux": aux_rec,
                        "build_s": secs, "ptxas": ptxas, "seconds": time.perf_counter() - t_start,
                        **extra}, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -266,14 +266,16 @@ def _csv(path):
     return np.loadtxt(path, delimiter=",", comments="#", ndmin=2)
 
 
-def test_generate_matches_jax_generator(scene, tmp_path):
+def test_generate_matches_jax_generator(scene, tmp_path, monkeypatch):
     """The port's generate() against the JAX generator, same arguments: the
     file list, data.csv and sensor.yaml identical, the IMU and ground
     truth CSVs within 1e-9, and each frame within the renderer tolerance
     of tests/test_torch_ops.py (99 % of pixels within one grey level,
-    mean difference < 0.3). Its PNGs read back with cv2.imread. The
-    stressors not ported raise (the occluder is held against the JAX
-    generator in tests/test_torch_drivers.py, the moving object in
+    mean difference < 0.3). Its PNGs read back with cv2.imread. Four
+    frames with the photometric stressors (motion blur, exposure drift,
+    sensor noise) rendered by the JAX renderer are identical to the JAX
+    generator's (the occluder is held against the JAX generator in
+    tests/test_torch_drivers.py, the moving object in
     tests/test_torch_dynamic.py)."""
     out = str(tmp_path / "port_scene")
     tsynth.generate(out, cam=tcfg.CameraConfig(**CAM_KW), **SCENE)
@@ -293,9 +295,21 @@ def test_generate_matches_jax_generator(scene, tmp_path):
         ref = cv2.imread(os.path.join(scene, "mav0", "cam0", "data", name), cv2.IMREAD_GRAYSCALE)
         diff = np.abs(ours.astype(int) - ref.astype(int))
         assert (diff <= 1).mean() >= 0.99 and diff.mean() < 0.3, (name, diff.mean())
-    for kw in (dict(noise_std=2.0), dict(motion_blur=3)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-            tsynth.generate(str(tmp_path / "x"), num_frames=1, **kw)
+    # the photometric stressors of tests/test_robustness.py (blur, drift,
+    # noise), same arguments in both packages; with the JAX package's
+    # (OpenCV) renderer under the port's generator, so that only the
+    # stressors differ, every stressed frame is identical
+    kw = dict(SCENE, num_frames=4, noise_std=6.0, exposure_drift=0.3, motion_blur=3)
+    ours, ref = str(tmp_path / "port_stress"), str(tmp_path / "jax_stress")
+    monkeypatch.setattr(tsynth, "render_frame", jsynth.render_frame)
+    tsynth.generate(ours, cam=tcfg.CameraConfig(**CAM_KW), **kw)
+    jsynth.generate(ref, cam=jcfg.CameraConfig(**CAM_KW), **kw)
+    names = sorted(os.listdir(os.path.join(ref, "mav0", "cam0", "data")))
+    assert sorted(os.listdir(os.path.join(ours, "mav0", "cam0", "data"))) == names
+    for name in names:
+        a, b = (cv2.imread(os.path.join(d, "mav0", "cam0", "data", name), cv2.IMREAD_GRAYSCALE)
+                for d in (ours, ref))
+        np.testing.assert_array_equal(a, b, err_msg=name)
 
 
 # --------------------------------------------------------------- metrics
