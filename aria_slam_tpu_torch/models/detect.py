@@ -21,7 +21,8 @@ from aria_slam_tpu_torch.ops import boxes as box_ops
 from aria_slam_tpu_torch.ops.pyramid import _bilinear_matrix, _sep_matmul
 from aria_slam_tpu_torch.ops.topk import top_k_stable
 
-# the random detector's generator seed when no model or weights are given
+# the random detector's seed when no model or weights are given: the JAX
+# package's init_params(cfg) draws from jax.random.key(0)
 DEFAULT_SEED = 0
 
 
@@ -39,7 +40,7 @@ def _resolve_model(cfg: DetectorConfig, model, weights_path, device) -> yolo.Yol
         if weights_path:
             model = yolo.load_weights(weights_path, cfg)
         else:
-            model = yolo.init_model(cfg, torch.Generator().manual_seed(DEFAULT_SEED))
+            model = yolo.init_model(cfg, DEFAULT_SEED)
     return model.to(device).eval()
 
 
@@ -80,8 +81,8 @@ def make_detector(cfg: DetectorConfig, model: Optional[yolo.Yolo] = None,
     """detect(image (H, W)) -> Detections of one frame, with NMS.
 
     model: a Yolo to use as it is; weights_path: an .npz in the JAX
-    package's format (yolo.load_weights); else random weights from a
-    generator seeded with DEFAULT_SEED. Runs on CUDA unless `device`
+    package's format (yolo.load_weights); else the JAX package's random
+    weights of seed DEFAULT_SEED (yolo.init_model). Runs on CUDA unless `device`
     says otherwise."""
     from aria_slam_tpu_torch.pipeline.slam_pipeline import resolve_device
 

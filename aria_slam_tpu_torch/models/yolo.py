@@ -23,26 +23,38 @@ batch norm computes (x - mean) * rsqrt(var + 1e-3) * scale + bias in
 float32 from the bf16 input and rounds once; SiLU and the residual add
 run on bf16; `decode_predictions` casts to float32 first. Batch norm is
 not folded into the kernels, which would move those rounding points. A
-float32 model on the card runs its convolutions with cuDNN's TF32 off.
+float32 model on the card runs its convolutions with cuDNN's TF32 off
+(`fp32_convolutions`, which a training step also holds around its
+backward pass).
 
-Random weights: `init_model` draws them from an explicit torch.Generator
-(flax's defaults in kind: lecun-normal kernels, zero biases, batch norm
-scale 1, bias 0, mean 0, var 1). It does not reproduce the JAX package's
-jax.random draws, so without a weights file the two packages' random
-detectors differ, as their RANSAC draws do.
+Training (models/detector_train.py): in train mode (`model.train()`)
+batch norm normalises with the batch's statistics as flax's
+`BatchNorm(use_running_average=False)` does (float32, the fast variance
+E[x^2] - E[x]^2 clipped at 0, biased, gradients through both) and
+updates the running averages as 0.99 old + 0.01 batch; `stats_group`
+makes the statistics those of the whole batch over a process group
+(parallel/multiseq.py). A model to train holds its kernels in float32
+(`param_dtype`) and rounds them to the compute dtype at every call, as
+flax does: held in bf16, Adam's small steps would round away.
+
+Random weights: `init_model(cfg, seed)` is the JAX package's
+`init_params(cfg, jax.random.key(seed))`, drawn in numpy by
+models/flax_init.py (lecun-normal kernels, zero biases, batch norm scale
+1, bias 0, mean 0, var 1).
 """
 
 from __future__ import annotations
 
 import contextlib
-import math
 
 import numpy as np
 import torch
+import torch.distributed.nn.functional as dist_nn
 import torch.nn.functional as F
 from torch import nn
 
 from aria_slam_tpu_torch.config import DetectorConfig
+from aria_slam_tpu_torch.models import flax_init
 
 
 def _ch(c: int, w: float) -> int:
@@ -73,8 +85,14 @@ class Conv(nn.Module):
 
 
 class BatchNorm(nn.Module):
-    """flax nn.BatchNorm with running averages (inference): float32
-    arithmetic on the input, one rounding to its dtype."""
+    """flax nn.BatchNorm(momentum=0.99, epsilon=1e-3): float32 arithmetic
+    on the input, one rounding to its dtype. In eval mode it normalises
+    with the running averages; in train mode with the batch's mean and
+    fast variance, summed over `stats_group` when one is set (per-channel
+    sums, sums of squares and counts, so the statistics are the whole
+    batch's however it is split), and updates the running averages."""
+
+    momentum = 0.99
 
     def __init__(self, c: int, eps: float = 1e-3):
         super().__init__()
@@ -83,10 +101,29 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(c))
         self.register_buffer("var", torch.ones(c))
         self.eps = eps
+        self.stats_group = None
+
+    def batch_stats(self, xf: torch.Tensor):
+        """(mean, var) over every axis but the channels of float32 xf."""
+        c = xf.shape[1]
+        sums = torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                          xf.new_full((1,), xf.numel() // c)])
+        if self.stats_group is not None:
+            sums = dist_nn.all_reduce(sums, group=self.stats_group)
+        mean, mean2 = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+        return mean, torch.clamp(mean2 - mean * mean, min=0.0)
 
     def forward(self, x):
-        mul = torch.rsqrt(self.var + self.eps) * self.scale
-        y = (x.float() - self.mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
+        xf = x.float()
+        if self.training:
+            mean, var = self.batch_stats(xf)
+            with torch.no_grad():
+                self.mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
+                self.var.mul_(self.momentum).add_((1 - self.momentum) * var)
+        else:
+            mean, var = self.mean, self.var
+        mul = torch.rsqrt(var + self.eps) * self.scale
+        y = (xf - mean[:, None, None]) * mul[:, None, None] + self.bias[:, None, None]
         return y.to(x.dtype)
 
 
@@ -235,15 +272,26 @@ def _cudnn_without_tf32():
         torch.backends.cudnn.allow_tf32 = old
 
 
+def fp32_convolutions(dtype: torch.dtype, device: torch.device):
+    """A context that keeps cuDNN's float32 convolutions in float32 (TF32
+    off) for a `dtype` model on `device`; a no-op for bf16 or the CPU."""
+    if torch.device(device).type == "cuda" and dtype == torch.float32:
+        return _cudnn_without_tf32()
+    return contextlib.nullcontext()
+
+
 class Yolo(_Compact):
     """The detector; forward((B, 3, S, S) float) -> per level (box_dfl
     (B, 4 reg_max, h, w), cls_logits (B, num_classes, h, w)) in `dtype`.
-    The convolutions' kernels and biases are held in `dtype` (rounded once
-    when loaded, where flax rounds them at every call), batch norm's
-    parameters and statistics in float32."""
+    The convolutions' kernels and biases are held in `param_dtype`
+    (default `dtype`: rounded once when loaded, where flax rounds them at
+    every call; float32 for a model to train), batch norm's parameters and
+    statistics in float32. A new model is in eval mode, as flax's apply
+    defaults to train=False; the train steps switch it to train mode."""
 
     def __init__(self, num_classes: int = 80, width: float = 0.5, depth: float = 0.33,
-                 reg_max: int = 16, dtype: torch.dtype = torch.bfloat16):
+                 reg_max: int = 16, dtype: torch.dtype = torch.bfloat16,
+                 param_dtype: torch.dtype | None = None):
         super().__init__()
         self.dtype = dtype
         backbone = YoloBackboneNeck(width, depth)
@@ -251,36 +299,39 @@ class Yolo(_Compact):
         self.sub(DetectHead(backbone.channels, num_classes, reg_max))
         for m in self.modules():
             if isinstance(m, Conv):
-                m.to(dtype)
+                m.to(param_dtype or dtype)
+        self.eval()
 
     def forward(self, x):
         backbone, head = self.children()
         x = x.to(self.dtype)
-        tf32_off = (_cudnn_without_tf32() if x.is_cuda and self.dtype == torch.float32
-                    else contextlib.nullcontext())
-        with tf32_off:
+        with fp32_convolutions(self.dtype, x.device):
             return head(backbone(x))
 
 
-def make_model(cfg: DetectorConfig, dtype: torch.dtype = torch.bfloat16) -> Yolo:
+def make_model(cfg: DetectorConfig, dtype: torch.dtype = torch.bfloat16,
+               param_dtype: torch.dtype | None = None) -> Yolo:
     """The detector of `cfg` with uninitialised kernels (see init_model)."""
-    return Yolo(cfg.num_classes, cfg.width_mult, cfg.depth_mult, dtype=dtype)
+    return Yolo(cfg.num_classes, cfg.width_mult, cfg.depth_mult, dtype=dtype,
+                param_dtype=param_dtype)
 
 
-def init_model(cfg: DetectorConfig, generator: torch.Generator,
-               dtype: torch.dtype = torch.bfloat16) -> Yolo:
-    """The detector with random weights drawn on the CPU from `generator`
-    in float32: lecun-normal kernels (truncated at 2 sigma, flax's
-    variance_scaling), zero biases, identity batch norm. Move it with
+def init_model(cfg: DetectorConfig, seed: int = 0, dtype: torch.dtype = torch.bfloat16,
+               param_dtype: torch.dtype | None = None) -> Yolo:
+    """The detector with the JAX package's random weights,
+    `yolo.init_params(cfg, jax.random.key(seed))`, on the CPU: each
+    kernel drawn by models/flax_init.py in flax's (kh, kw, in, out) layout
+    from the key of its module path, then transposed. Move it with
     .to(device)."""
-    model = make_model(cfg, dtype)
+    model = make_model(cfg, dtype, param_dtype)
+    root = flax_init.key(seed)
     with torch.no_grad():
-        for mod in model.modules():
+        for name, mod in model.named_modules():
             if isinstance(mod, Conv):
-                w = torch.empty(mod.kernel.shape)
-                std = math.sqrt(1.0 / w[0].numel()) / 0.87962566103423978
-                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std, generator=generator)
-                mod.kernel.copy_(w)
+                cout, cin, k, _ = mod.kernel.shape
+                w = flax_init.lecun_normal(flax_init.fold_in_path(root, name.split(".") + [1]),
+                                           (k, k, cin, cout))
+                mod.kernel.copy_(torch.from_numpy(w.transpose(3, 2, 0, 1).copy()))
     return model
 
 

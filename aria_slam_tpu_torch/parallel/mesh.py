@@ -90,6 +90,22 @@ def shard_rows(mesh: Mesh, x, axis: str):
     return x[i * block:(i + 1) * block]
 
 
+def gather_rows(mesh: Mesh, xs, axis: str) -> tuple:
+    """The inverse of shard_rows for each tensor of xs: every rank's block
+    gathered over `axis` in rank order (collective over that axis's group;
+    the blocks as they are when the axis has one rank)."""
+    n = mesh.shape[axis]
+    if n == 1:
+        return tuple(xs)
+    group = mesh.data_group if axis == "data" else mesh.model_group
+    out = []
+    for x in xs:
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        out.append(torch.cat(parts))
+    return tuple(out)
+
+
 @contextlib.contextmanager
 def single_process_group(backend: str = "nccl"):
     """A world-size-1 default group in this process (rendezvous through a

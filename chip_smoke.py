@@ -29,6 +29,16 @@ Phases, one line each; any failure raises and exits non-zero:
               the corner and patch kernels also at B = 33 frames (the
               chunked front end's one launch a chunk), the match kernel
               also at N = 4, 5, 8, 32 (a chunk's consecutive pairs) and 256.
+              Then the geometry check: the batched RANSAC (homography
+              rescue, Sampson polish), the depth pins and the pin scale on
+              16 full-width pairs 16 frames apart with one set of draws, on
+              the card (where ops/linalg.dot / matvec and epipolar._apply
+              are a product and a sum) and on the CPU (their einsum /
+              matmul), at the CPU parity tests' gates for rendered pairs
+              without a gyro prior (check_geometry); before it the forms
+              alone on random inputs, within float32's error bound of the
+              CPU's, and beside it the witness, the CPU in the card's
+              forms (tools/geometry_flips.py runs it over 18 draw cells).
 4. slice   -- 20 rendered frames through the port's own entry points
               (factory.create_gpu, SlamPipeline.process_imu /
               process_frame / finalize) in the VO-only configuration at
@@ -117,9 +127,9 @@ Phases, one line each; any failure raises and exits non-zero:
               on 24 full-width frames: both ms a frame, the trajectories
               within 1e-5 m.
 9. detect  -- the object detector, YOLO-s at 640 px in bf16
-              (DetectorConfig() with random weights from a seeded
-              torch.Generator). (a) alone on 752x480 frames, make_detector
-              at B = 1 with NMS and make_batched_detector at B = 33
+              (DetectorConfig() with the JAX package's random weights of
+              seed 0, yolo.init_model). (a) alone on 752x480 frames,
+              make_detector at B = 1 with NMS and make_batched_detector at B = 33
               without: the whole call, preprocess, forward (also its
               device time in a CUDA graph), decode, postprocess and NMS
               timed apart, kernels a call, peak memory, the convolutions'
@@ -178,6 +188,37 @@ Phases, one line each; any failure raises and exits non-zero:
               estimator's median ratio; finite), and the stressed scene
               (noise 6, exposure drift 0.3, blur 3 px, 33 frames) through
               euroc_eval.run at chunk 16 (Sim3 ATE < 0.5 m).
+13. train  -- detector training (models/detector_train.py). (a) the
+              learning gate of tests/test_detector_train.py on the card:
+              train(64 px, width 0.25, 2 classes, batch 8, seed 0) for
+              the CLI's 600 steps, make_detector on the model after 250
+              steps (16 images) and after 600 (64 images): mean IoU > 0.35
+              and > the random init of seed 9 + 0.25 at both, class
+              accuracy >= 0.7 after 600 (CLASS_STEPS); ms a step, kernels
+              a step, the total time. (b) one step on the card against
+              the port on the CPU from the same init and batch: float32
+              loss within 1e-4 relative, every gradient tensor within 1e-3
+              of its largest entry and at a cosine >= 0.9999 with the
+              CPU's, with no convolution in TF32 in the forward or
+              backward pass (hooks read cuDNN's flag at each); bf16 loss
+              within 2e-2,
+              and the card's bf16 gradients as close to the CPU's float32
+              ones as the CPU's bf16 gradients are (median and 10th
+              percentile of the per-tensor cosines within 0.05; the
+              cosines of the two bf16 gradients are printed). (c)
+              YOLO-s (DetectorConfig(): 640 px, width 0.5, 80 classes) in
+              bf16 at B = 8: ms a step, peak memory, finite losses, beside
+              the bound of three forward passes' operations at the bf16
+              peak against the step's bytes. (d) on the one-card NCCL
+              mesh, multiseq.make_sharded_train_step against
+              detector_train_step (equal loss, parameters within 1e-5),
+              then parallel/dryrun.run(1, "nccl") with the counts set to 0
+              just before it and counted by part (the DB query, the pair
+              front end, the chunk front end), and the kernels at each
+              part's shapes: match at N = 8 keyframes of 64 descriptors;
+              corner and patch at B = 1 frame of 96 x 96 and match at
+              N = 1 pair; corner and patch at B = 4 and match at N = 3,
+              each record with the launches of its own part.
 
 The line before the last holds the card's name and power limit as
 nvidia-smi reports them, the one before it the kernels' JSON record (each
@@ -187,8 +228,9 @@ path's two shapes, the verify batch on that run's own inputs, with the
 launches counted inside lc_query and verify_batch, at the online loop
 closure's two, with the launches of the online phase, and each kernel at
 the online and chunked shapes once more with the launches of the detect
-phase's runs (b) and (d), and the kernels at the multi and db phases'
-shapes with those phases' launches), and the last line is
+phase's runs (b) and (d), the kernels at the multi and db phases'
+shapes with those phases' launches, and at each part of the dry run's
+with that part's launches), and the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -230,6 +272,7 @@ LOOP_CHUNKS = 8          # the loop phase: 257 frames of the rotloop
 LOOP_FRAMES = LOOP_CHUNKS * CHUNK + 1
 LOOP_PERIOD = 20.0
 LOOP_TRUE_M = 0.5        # a loop pair is true when its frames lie this close
+DEV = torch.device("cuda")
 
 
 def log(phase: str, msg: str) -> None:
@@ -1543,7 +1586,7 @@ def peak_mib(fn) -> float:
 
 def run_detect_alone(frames, dev):
     """Part (a): the detector alone at YOLO-s width (DetectorConfig() as it
-    is, 640 px, random weights from a seeded torch.Generator) on 752x480
+    is, 640 px, the JAX package's random weights of seed 0) on 752x480
     frames, B = 1 with NMS and B = 33 without, each piece timed."""
     import copy
     import dataclasses
@@ -1553,7 +1596,7 @@ def run_detect_alone(frames, dev):
     from aria_slam_tpu_torch.ops import boxes
 
     cfg = DetectorConfig()
-    cpu_model = yolo.init_model(cfg, torch.Generator().manual_seed(0))
+    cpu_model = yolo.init_model(cfg, 0)
     model = copy.deepcopy(cpu_model).to(dev).eval()
     census, handles = conv_census(model)
     h, w = frames[0].shape
@@ -1940,11 +1983,15 @@ def generate_scenes(cam, tmp):
     return dirs
 
 
-def multi_records(frames, cfg, dev):
-    """The three kernels at the multi phase's shapes, each against its
-    plain version on the card: corner and patch at B = S * (C+1) = 68
-    frames (one extract of a chunk round), match at the round's N = S * C
-    = 64 consecutive pairs of those frames' features."""
+def multi_records(frames, cfg, dev, path: str = "multi", role: str = None,
+                  extract_b: int = None):
+    """The three kernels at a multi-sequence chunk round's shapes, each
+    against its plain version on the card: corner and patch at B = S *
+    (C+1) frames (one extract of the round; 68 in the multi phase), or at
+    the first extract_b of them when each extract takes that many, match
+    at the round's N = S * C consecutive pairs of those frames' features.
+    path: the run whose launches the records carry; role: the part of
+    that run, when its launches are counted by part."""
     from aria_slam_tpu_torch.ops import brief, orb
     from aria_slam_tpu_torch.ops.cuda import corner_kernel as ck
     from aria_slam_tpu_torch.ops.cuda import match_kernel as mk
@@ -1952,11 +1999,13 @@ def multi_records(frames, cfg, dev):
 
     s, cp1 = frames.shape[:2]
     flat = list(frames.reshape(s * cp1, *frames.shape[2:]))
-    b = len(flat)
+    one = flat[:extract_b or len(flat)]
+    b = len(one)
     thr, hb, radius = cfg.fast_threshold, cfg.harris_block_size, brief.PATCH_R
+    label = f"{path} {role}" if role else path
     recs = []
     # corner: bit-equal on every level
-    levels = pyramid_levels(flat, cfg, dev)
+    levels = pyramid_levels(one, cfg, dev)
     got = ck.corner_rank_maps(levels, thr, hb)
     for lvl, g in zip(levels, got):
         if not torch.equal(g, ck.corner_rank_map_plain(lvl, thr, hb)):
@@ -1964,7 +2013,7 @@ def multi_records(frames, cfg, dev):
     px = sum(lvl.numel() for lvl in levels)
     b_ms, by = bound(2 * 4 * px, corner_ops(levels, got, thr, hb // 2), F32_OPS_PER_MS)
     del got
-    recs.append(dict(name=f"corner_rank_map B={b} (multi)", path="multi", route="cuda",
+    recs.append(dict(name=f"corner_rank_map B={b} ({label})", path=path, route="cuda",
                      source="aria_slam_tpu_torch/csrc/corner_kernel.cu",
                      replaces="aria_slam_tpu/ops/pallas/corner_kernel.py:125",
                      wrapper="corner_rank_maps", max_abs_err=0.0, library_ms=None,
@@ -1977,7 +2026,7 @@ def multi_records(frames, cfg, dev):
     del levels
     torch.cuda.empty_cache()
     # patch: exact, all levels in one launch
-    inputs = level_inputs(flat, cfg, dev)
+    inputs = level_inputs(one, cfg, dev)
     blurred = [img for _, img, _ in inputs]
     xys = [xy for _, _, xy in inputs]
     got = pk.extract_patches_levels(blurred, xys, radius)
@@ -1988,7 +2037,7 @@ def multi_records(frames, cfg, dev):
     bi = torch.arange(b, device=dev)[:, None, None, None]
     b_ms, by = bound(patch_bytes(blurred, xys, indices), 0.0, F32_OPS_PER_MS)
     reps = dict(iters=3, replays=3)
-    recs.append(dict(name=f"extract_patches B={b} (multi)", path="multi", route="cuda",
+    recs.append(dict(name=f"extract_patches B={b} ({label})", path=path, route="cuda",
                      source="aria_slam_tpu_torch/csrc/patch_kernel.cu",
                      replaces="aria_slam_tpu/ops/pallas/patch_kernel.py:60",
                      wrapper="extract_patches_levels", max_abs_err=0.0,
@@ -2014,16 +2063,18 @@ def multi_records(frames, cfg, dev):
               for g, w in zip(mk.match_top2_batched(q, t, v), mk.match_top2_plain(q, t, v)))
     torch.cuda.empty_cache()
     if err:
-        raise AssertionError(f"match N={q.shape[0]} (multi): max abs error {err}")
+        raise AssertionError(f"match N={q.shape[0]} ({path}): max abs error {err}")
     b_ms, by = match_bound(q, t, v)
-    recs.append(dict(name=f"match_top2 N={q.shape[0]} (multi)", path="multi", **MATCH_COMMON,
+    recs.append(dict(name=f"match_top2 N={q.shape[0]} ({label})", path=path, **MATCH_COMMON,
                      max_abs_err=float(err),
                      ms=graph_ms(lambda: mk.match_top2_batched(q, t, v), iters=5, replays=4),
                      launch_ms=cuda_ms(lambda: mk.match_top2_batched(q, t, v), iters=10),
                      plain_ms=graph_ms(lambda: mk.match_top2_plain(q, t, v), iters=1, replays=2),
                      bound_ms=b_ms, bound_by=by))
     torch.cuda.empty_cache()
-    log("multi", "kernels at the round's shapes, each equal to its plain version: "
+    if role:
+        recs = [dict(r, role=role) for r in recs]
+    log(path, f"kernels at the {label} shapes, each equal to its plain version: "
         + "; ".join(f"{r['name']} {r['ms']:.4f} ms (bound {r['bound_ms']:.5f} ms, "
                     f"{r['bound_by']}; with launch cost {r['launch_ms']:.4f} ms; plain "
                     f"{r['plain_ms']:.4f} ms"
@@ -2290,6 +2341,572 @@ def run_aux(dirs, cam, tmp, dev):
     return rec
 
 
+GEOM_PAIRS = 16          # the geometry check: pairs (i, i + GEOM_LAG) of the sweep
+GEOM_LAG = 16
+# the draws' generator. Without a gyro prior, RANSAC on full-width frames
+# picks among near-equal hypotheses by float32 rounding: on the H100, with
+# lag 4 every seed of 0-5 had a pair whose translation flipped (two
+# consensus sets); with lag 8 or 16, 6 of 12 seeds kept R within 5e-3 and
+# the success flags equal. The CPU in the card's forms flips against the
+# CPU's own about as often, on 9 of the same 12 cells
+# (tools/geometry_flips.py, PERF.md); this seed by the widest margin
+GEOM_SEED = 1
+
+
+class ReplaySampler:
+    """RANSAC draws made once on the CPU (ops/epipolar.TorchSampler from a
+    seeded generator) and served again in call order: two runs of the same
+    estimator on two devices see the same minimal samples."""
+
+    def __init__(self, seed: int):
+        from aria_slam_tpu_torch.ops import epipolar
+
+        self.inner = epipolar.TorchSampler(torch.Generator().manual_seed(seed))
+        self.draws, self.pos = [], 0
+
+    def __call__(self, valid, num_hypotheses, sample_size, stage):
+        if self.pos == len(self.draws):
+            self.draws.append(self.inner(valid.cpu(), num_hypotheses, sample_size, stage))
+        idx = self.draws[self.pos]
+        self.pos += 1
+        return idx.to(valid.device)
+
+
+@contextlib.contextmanager
+def card_forms():
+    """ops/linalg.dot / matvec and ops/epipolar._apply in the forms they
+    take on CUDA tensors (a product and a sum over the last axis), on any
+    device: the witness that tells the card's rounding from a card
+    fault."""
+    from aria_slam_tpu_torch.ops import epipolar, linalg
+
+    with mock.patch.object(linalg, "dot", lambda a, b: (a * b).sum(-1)), \
+            mock.patch.object(linalg, "matvec", lambda M, v: (M * v[..., None, :]).sum(-1)), \
+            mock.patch.object(epipolar, "_apply", lambda E, x: (E * x[..., None, :]).sum(-1)):
+        yield
+
+
+def geometry_inputs(frames, cam, dev, lag: int, pairs: int):
+    """The card's extract and match of `pairs` sweep pairs (i, i + lag) at
+    full width: (previous frame's matched points, current points, valid),
+    on `dev`."""
+    from aria_slam_tpu_torch.config import PipelineConfig
+    from aria_slam_tpu_torch.eval.chunked import extract
+    from aria_slam_tpu_torch.ops import match as match_ops
+
+    cfg = PipelineConfig(camera=cam)
+    feats = extract(torch.from_numpy(np.stack(frames[:pairs + lag])).to(dev), cfg)
+    prev = feats.map(lambda x: x[:pairs])
+    cur = feats.map(lambda x: x[lag:lag + pairs])
+    m = match_ops.match_batched(cur, prev, cfg.matcher.ratio)
+    tidx = m.train_idx.long()
+    return (torch.take_along_dim(prev.xy, tidx[..., None], 1), cur.xy,
+            m.valid & torch.take_along_dim(prev.valid, tidx, 1))
+
+
+def geometry_run(inputs, cam, sampler, device):
+    """The batched RANSAC with its homography rescue and Sampson polish,
+    the depth pins and the pin scale on `device` with the draws replayed
+    from the start: (host results, ms)."""
+    from aria_slam_tpu_torch.config import PipelineConfig
+    from aria_slam_tpu_torch.ops import epipolar
+
+    cfg = PipelineConfig(camera=cam)
+    sampler.pos = 0
+    xy1, xy2, valid = (x.to(device) for x in inputs)
+    K = torch.as_tensor(cam.K, dtype=torch.float32, device=device)
+    t0 = time.perf_counter()
+    d = epipolar.estimate_relative_pose(xy1, xy2, valid, K, cfg.ransac, sampler)
+    pz, pgood = epipolar.pin_depths(d, xy1, xy2, valid, K, cfg.vo_pin_estimator,
+                                    cfg.vo_pin_sigma_px)
+    pins, pin_oks = epipolar.pin_scale(pz, pgood, cfg.vo_scene_depth)
+    out = {k: v.cpu() for k, v in dict(R=d.R, t=d.t, mask=d.inlier_mask, ok=d.success,
+                                        pins=pins, pin_oks=pin_oks).items()}
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def geometry_gaps(a, b) -> dict:
+    """How far two geometry_run results are apart; `flipped` counts the
+    pairs whose success flag differs or whose rotations differ by more
+    than 5e-3 (another hypothesis won)."""
+    n_a, n_b = a["mask"].sum(-1).float(), b["mask"].sum(-1).float()
+    cos_t = torch.clamp((a["t"] * b["t"]).sum(-1), -1.0, 1.0)
+    both = a["pin_oks"] & b["pin_oks"]
+    r_pairs = (a["R"] - b["R"]).abs().amax((1, 2))
+    return dict(R_err=float(r_pairs.max()), t_err=float((a["t"] - b["t"]).abs().max()),
+                t_deg=float(torch.rad2deg(torch.arccos(cos_t)).max()),
+                R_err_pairs=r_pairs.tolist(),
+                inlier_rel=float(((n_a - n_b).abs() / n_b.clamp(min=1)).max()),
+                mask_agree=float((a["mask"] == b["mask"]).float().mean()),
+                ok_equal=bool(torch.equal(a["ok"], b["ok"])), ok=int(a["ok"].sum()),
+                pin_oks_equal=bool(torch.equal(a["pin_oks"], b["pin_oks"])),
+                pin_rel=float(((a["pins"] - b["pins"]).abs() / b["pins"].abs())[both].max())
+                if bool(both.any()) else 0.0,
+                flipped=int(((a["ok"] != b["ok"]) | (r_pairs > 5e-3)).sum()),
+                inliers=n_a.int().tolist())
+
+
+def forms_error(dev) -> float:
+    """ops/linalg.dot / matvec and ops/epipolar._apply on the card (a
+    product and a sum) against the CPU's einsum / matmul on the same
+    random float32 inputs, k = 3, 5 and 9 terms: the largest difference
+    over k * 2^-23 * sum |a_i b_i|, the bound that two float32 sums of
+    the same k products keep (<= 1 unless a form computes another
+    function)."""
+    from aria_slam_tpu_torch.ops import epipolar, linalg
+
+    g = torch.Generator().manual_seed(5)
+    worst = 0.0
+    for k in (3, 5, 9):
+        a, b = torch.randn(4096, k, generator=g), torch.randn(4096, k, generator=g)
+        M = torch.randn(4096, k, k, generator=g)
+        cases = [(linalg.dot, (a, b), (a * b).abs().sum(-1)),
+                 (linalg.matvec, (M, b), (M * b[:, None, :]).abs().sum(-1))]
+        if k == 3:
+            cases.append((epipolar._apply, (M, b), (M * b[:, None, :]).abs().sum(-1)))
+        for fn, args, mag in cases:
+            card = fn(*(x.to(dev) for x in args)).cpu()
+            worst = max(worst, float(((card - fn(*args)).abs() / (mag * k * 2**-23)).max()))
+    return worst
+
+
+def check_geometry(frames, cam, dev):
+    """The card's short contractions against the CPU route: ops/linalg.dot
+    / matvec and ops/epipolar._apply are a product and a sum on CUDA
+    tensors and an einsum / matmul on the CPU (the form the CPU parity
+    tests hold against JAX). On one set of features (the card's extract
+    and match of GEOM_PAIRS sweep pairs GEOM_LAG frames apart at full
+    width) and one set of draws (ReplaySampler), geometry_run on the
+    card, on the CPU, and on the CPU in the card's forms (card_forms, the
+    witness). Gates, card against CPU, the CPU parity tests' own for
+    pairs of rendered frames without a gyro prior
+    (tests/test_torch_chunked.py test_extract_and_pairs_from_frames):
+    rotations within 5e-3, translation directions within 3 degrees,
+    inlier counts within 10 %, pins within 10 %, the same success and pin
+    flags; and inlier masks equal on >= 99.5 % of the slots
+    (tests/test_torch_geometry.py). The 1e-3 of the synthetic 0.1 px
+    parity cases is not met by any seed here: rounding moves RANSAC's
+    pick among near-equal hypotheses (module notes at GEOM_SEED). The
+    witness's gaps to the card and to the CPU are printed beside. Before
+    them, the forms alone (forms_error): within float32's bound of the
+    CPU's on random inputs."""
+    forms = forms_error(dev)
+    if not forms <= 1.0:
+        raise AssertionError(f"the card's contraction forms differ from the CPU's by {forms} "
+                             "of the float32 bound")
+    inputs = geometry_inputs(frames, cam, dev, GEOM_LAG, GEOM_PAIRS)
+    sampler = ReplaySampler(GEOM_SEED)
+    card, card_ms = geometry_run(inputs, cam, sampler, dev)
+    host, host_ms = geometry_run(inputs, cam, sampler, torch.device("cpu"))
+    with card_forms():
+        witness, _ = geometry_run(inputs, cam, sampler, torch.device("cpu"))
+    rec = dict(pairs=GEOM_PAIRS, lag=GEOM_LAG, seed=GEOM_SEED, card_ms=card_ms, cpu_ms=host_ms,
+               forms_error=forms, **geometry_gaps(card, host),
+               witness_to_card=geometry_gaps(witness, card),
+               witness_to_cpu=geometry_gaps(witness, host))
+    wc, wh = rec["witness_to_card"], rec["witness_to_cpu"]
+    log("geometry", f"dot / matvec / _apply on the card against the CPU's forms: "
+                    f"{forms:.3f} of the float32 bound; "
+                    f"batched RANSAC + Sampson polish + pins on {GEOM_PAIRS} full-width pairs "
+                    f"(lag {GEOM_LAG}, draws of seed {GEOM_SEED}), card against CPU: R within "
+                    f"{rec['R_err']:.2e}, t within {rec['t_err']:.2e} ({rec['t_deg']:.3f} deg), "
+                    f"inlier counts within {rec['inlier_rel'] * 100:.2f} %, masks agree on "
+                    f"{rec['mask_agree'] * 100:.3f} %, success equal {rec['ok_equal']} "
+                    f"({rec['ok']} ok), pin flags equal {rec['pin_oks_equal']}, pins within "
+                    f"{rec['pin_rel'] * 100:.3f} %; card {card_ms:.1f} ms, CPU {host_ms:.1f} ms; "
+                    f"per-pair R error {[f'{e:.1e}' for e in rec['R_err_pairs']]}, inliers "
+                    f"{rec['inliers']}; the CPU in the card's forms: to the card R "
+                    f"{wc['R_err']:.2e}, t {wc['t_deg']:.3f} deg, masks "
+                    f"{wc['mask_agree'] * 100:.3f} %, {wc['flipped']} pairs flipped; to the CPU "
+                    f"R {wh['R_err']:.2e}, t {wh['t_deg']:.3f} deg, masks "
+                    f"{wh['mask_agree'] * 100:.3f} %, {wh['flipped']} pairs flipped")
+    if not (rec["R_err"] <= 5e-3 and rec["t_deg"] <= 3.0 and rec["inlier_rel"] <= 0.1
+            and rec["mask_agree"] >= 0.995 and rec["ok_equal"] and rec["pin_oks_equal"]
+            and rec["pin_rel"] <= 0.1):
+        raise AssertionError(f"geometry on the card differs from the CPU route: {rec}")
+    return rec
+
+
+TRAIN_CFG = dict(input_size=64, width_mult=0.25, depth_mult=0.33, num_classes=2,
+                 max_detections=20, conf_threshold=0.35)  # tests/test_detector_train.py
+TRAIN_STEPS = 250        # tests/test_detector_train.py's IoU gate
+TRAIN_BATCH = 8
+# the class-accuracy gate after the CLI's 600 steps on 64 images: after
+# 250 steps one model's class accuracy on 16 images is a coin flip for
+# the reference too (the JAX package on the CPU: 0.75 / 0.75 / 0.60 /
+# 0.63 at seeds 0-3), after 600 it is 1.000 at seed 0 for both packages
+# (tools/learn_spread.py, PERF.md)
+CLASS_STEPS = 600
+CLASS_IMAGES = 64
+YOLO_S_BATCH = 8
+YOLO_S_STEPS = 6
+
+
+def best_iou(detect, make_batch, seed: int = 1234, n_images: int = 16,
+             input_size: int = 64):
+    """tests/test_detector_train.py's _best_iou_per_image around
+    detect(gray (S, S) float32 numpy) -> (boxes, classes, valid) numpy and
+    a make_synthetic_batch: (mean best IoU, class accuracy over hits,
+    hits). tools/learn_spread.py scores both packages with it."""
+    rng = np.random.default_rng(seed)
+    ious, cls_hits, hits = [], 0, 0
+    for _ in range(n_images):
+        imgs, boxes, cls, _ = make_batch(rng, 1, input_size, max_boxes=1, num_classes=2)
+        db, dc, dv = detect((imgs[0].mean(-1) * 255).astype(np.float32))
+        gt = boxes[0, 0]
+        best, best_c = 0.0, -1
+        for i in np.where(dv)[0]:
+            b = db[i]
+            inter = (max(min(b[2], gt[2]) - max(b[0], gt[0]), 0)
+                     * max(min(b[3], gt[3]) - max(b[1], gt[1]), 0))
+            iou = inter / max((b[2] - b[0]) * (b[3] - b[1]) + (gt[2] - gt[0]) * (gt[3] - gt[1])
+                              - inter, 1e-9)
+            if iou > best:
+                best, best_c = iou, dc[i]
+        ious.append(best)
+        if best > 0.5:
+            hits += 1
+            cls_hits += int(best_c == cls[0, 0])
+    return float(np.mean(ious)), (cls_hits / hits if hits else 0.0), hits
+
+
+def numpy_detect(det, device):
+    """The port's detector `det` as a numpy function for best_iou."""
+    def detect(gray):
+        d = det(torch.from_numpy(gray).to(device))
+        return d.boxes.cpu().numpy(), d.classes.cpu().numpy(), d.valid.cpu().numpy()
+
+    return detect
+
+
+def conv_tf32_census(model):
+    """Forward and backward hooks on every convolution of `model` that
+    record cuDNN's TF32 flag when the convolution and its gradient run.
+    -> (records {"forward": [...], "backward": [...]}, handles)."""
+    from aria_slam_tpu_torch.models import yolo
+
+    rec = {"forward": [], "backward": []}
+
+    def fwd(mod, inputs, out):
+        rec["forward"].append(bool(torch.backends.cudnn.allow_tf32))
+
+    def bwd(mod, grad_in, grad_out):
+        rec["backward"].append(bool(torch.backends.cudnn.allow_tf32))
+
+    handles = []
+    for m in model.modules():
+        if isinstance(m, yolo.Conv):
+            handles += [m.register_forward_hook(fwd), m.register_full_backward_hook(bwd)]
+    return rec, handles
+
+
+def _cos(a, b) -> float:
+    """Cosine of two gradient tensors (1 when both are zero)."""
+    na, nb = float(a.norm()), float(b.norm())
+    return 1.0 if na == nb == 0 else float((a.flatten() @ b.flatten()) / (na * nb))
+
+
+def _gap(a, b) -> float:
+    """Largest difference of two gradient tensors over the second's
+    largest magnitude (0 when they are equal)."""
+    diff, scale = float((a - b).abs().max()), float(b.abs().max())
+    return diff / scale if scale else (0.0 if diff == 0 else float("inf"))
+
+
+def cpu_card_step(cfg, dtype, batch):
+    """One make_train_step step of init_model(cfg, 0) computing in `dtype`
+    on the card and on the CPU from the same batch: (card loss, CPU loss,
+    card gradients, CPU gradients, TF32 census of the card's step)."""
+    from aria_slam_tpu_torch.models import detector_train as tdt, yolo
+
+    out = []
+    for device in (DEV, torch.device("cpu")):
+        model = yolo.init_model(cfg, 0, dtype=dtype, param_dtype=torch.float32).to(device)
+        census, handles = conv_tf32_census(model) if not out else (None, [])
+        loss = tdt.make_train_step(model, tdt.adam(model, 2e-3), cfg.input_size,
+                                   cfg.num_classes)(*batch)
+        for hd in handles:
+            hd.remove()
+        out.append((float(loss), [p.grad.detach().float().cpu() for p in model.parameters()],
+                    census))
+    (lc, gc_, census), (lh, gh, _) = out
+    return lc, lh, gc_, gh, census
+
+
+def train_learn():
+    """Phase 13 (a): the learning gate, train() at seed 0 for
+    CLASS_STEPS steps with its steps timed through its own step function
+    and the model copied after TRAIN_STEPS."""
+    import copy
+
+    from aria_slam_tpu_torch.config import DetectorConfig
+    from aria_slam_tpu_torch.models import detect, detector_train as tdt, yolo
+
+    cfg = DetectorConfig(**TRAIN_CFG)
+    times, kernels_a_step, at_gate = [], {}, {}
+    real_make = tdt.make_train_step
+
+    def timed_make(model, *a, **kw):
+        step = real_make(model, *a, **kw)
+        calls = [0]
+
+        def timed(*args):
+            calls[0] += 1
+            if len(times) == 10 and not kernels_a_step:  # one step under the profiler
+                out = []
+                kernels_a_step["n"] = cuda_kernels(lambda: out.append(step(*args)))
+                loss = out[0]
+            else:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = step(*args)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            if calls[0] == TRAIN_STEPS:
+                at_gate["model"] = copy.deepcopy(model)
+            return loss
+        return timed
+
+    def score(model, n_images):
+        det = numpy_detect(detect.make_detector(cfg, model=model, device=DEV), DEV)
+        return best_iou(det, tdt.make_synthetic_batch, n_images=n_images)
+
+    random = yolo.init_model(cfg, 9)
+    t0 = time.perf_counter()
+    with mock.patch.object(tdt, "make_train_step", timed_make):
+        model = tdt.train(cfg, steps=CLASS_STEPS, batch=TRAIN_BATCH, seed=0, device=DEV)
+    total_s = time.perf_counter() - t0
+    runs = []
+    for steps, m, n in ((TRAIN_STEPS, at_gate["model"], 16), (CLASS_STEPS, model, CLASS_IMAGES)):
+        miou, cls_acc, hits = score(m, n)
+        runs.append(dict(steps=steps, images=n, miou=miou, miou_random=score(random, n)[0],
+                         cls_acc=cls_acc, hits=hits))
+    rec = dict(batch=TRAIN_BATCH, seed=0, runs=runs, total_s=total_s,
+               step_ms=float(np.median(times[5:])),
+               step_ms_p90=float(np.percentile(times[5:], 90)),
+               kernels_a_step=kernels_a_step["n"])
+    log("train", f"(a) train(64 px, width 0.25, 2 classes, {CLASS_STEPS} steps, batch "
+                 f"{TRAIN_BATCH}, seed 0) on the card in {total_s:.1f} s: "
+                 f"{rec['step_ms']:.2f} ms a step (median after 5, p90 "
+                 f"{rec['step_ms_p90']:.2f}), {kernels_a_step['n']} kernels and copies a step; "
+                 + "; ".join(f"after {r['steps']} steps on {r['images']} images: mean IoU "
+                             f"{r['miou']:.3f} (random init of seed 9 {r['miou_random']:.3f}), "
+                             f"class accuracy {r['cls_acc']:.3f} on {r['hits']} hits"
+                             for r in runs))
+    gate, long = runs
+    if not (all(r["miou"] > 0.35 and r["miou"] > r["miou_random"] + 0.25 for r in runs)
+            and (long["hits"] < 4 or long["cls_acc"] >= 0.7)):
+        raise AssertionError(f"the trained detector did not learn: {rec}")
+    return rec
+
+
+def train_card_against_cpu():
+    """Phase 13 (b): one step on the card against the port on the CPU."""
+    from aria_slam_tpu_torch.config import DetectorConfig
+    from aria_slam_tpu_torch.models import detector_train as tdt
+
+    cfg = DetectorConfig(**TRAIN_CFG)
+    batch = tdt.make_synthetic_batch(np.random.default_rng(3), TRAIN_BATCH, cfg.input_size,
+                                     num_classes=cfg.num_classes)
+    lc, lh, gc32, gh32, census = cpu_card_step(cfg, torch.float32, batch)
+    tf32 = sum(census["forward"]) + sum(census["backward"])
+    rec = {"f32": dict(loss_card=lc, loss_cpu=lh, rel=abs(lc - lh) / abs(lh),
+                       min_cos=min(_cos(a, b) for a, b in zip(gc32, gh32)),
+                       max_gap=max(_gap(a, b) for a, b in zip(gc32, gh32)),
+                       convs_forward=len(census["forward"]),
+                       convs_backward=len(census["backward"]), tf32_convs=tf32)}
+    lc16, lh16, gc16, gh16, _ = cpu_card_step(cfg, torch.bfloat16, batch)
+    both = [_cos(a, b) for a, b in zip(gc16, gh16)]
+    card = [_cos(a, b) for a, b in zip(gc16, gh32)]
+    host = [_cos(a, b) for a, b in zip(gh16, gh32)]
+    rec["bf16"] = dict(loss_card=lc16, loss_cpu=lh16, rel=abs(lc16 - lh16) / abs(lh16),
+                       card_cpu_min=min(both), card_cpu_median=float(np.median(both)),
+                       card_f32_p10=float(np.percentile(card, 10)),
+                       card_f32_median=float(np.median(card)),
+                       cpu_f32_p10=float(np.percentile(host, 10)),
+                       cpu_f32_median=float(np.median(host)))
+    b = rec["bf16"]
+    log("train", f"(b) one step, card against the port on the CPU, same init and batch: float32 "
+                 f"loss {lc:.6f} / {lh:.6f} (rel {rec['f32']['rel']:.2e}), gradient cosine >= "
+                 f"{rec['f32']['min_cos']:.6f}, every gradient within "
+                 f"{rec['f32']['max_gap']:.2e} of its tensor's largest entry, {tf32} of {len(census['forward'])} forward and "
+                 f"{len(census['backward'])} backward convolutions in TF32; bf16 loss "
+                 f"{lc16:.6f} / {lh16:.6f} (rel {b['rel']:.2e}), gradient cosine card against "
+                 f"CPU min {b['card_cpu_min']:.4f}, median {b['card_cpu_median']:.4f}; against "
+                 f"the CPU's float32 gradients: the card's bf16 p10 {b['card_f32_p10']:.4f}, "
+                 f"median {b['card_f32_median']:.4f}, the CPU's bf16 p10 {b['cpu_f32_p10']:.4f}, "
+                 f"median {b['cpu_f32_median']:.4f}")
+    if not (rec["f32"]["rel"] <= 1e-4 and rec["f32"]["min_cos"] >= 0.9999
+            and rec["f32"]["max_gap"] <= 1e-3 and tf32 == 0 and census["backward"]):
+        raise AssertionError(f"float32 step on the card: {rec['f32']}")
+    if not (b["rel"] <= 2e-2 and b["card_f32_median"] >= b["cpu_f32_median"] - 0.05
+            and b["card_f32_p10"] >= b["cpu_f32_p10"] - 0.05):
+        raise AssertionError(f"bf16 step on the card: {b}")
+    return rec
+
+
+def train_yolo_s():
+    """Phase 13 (c): YOLO-s at 640 px, B = 8, bf16."""
+    from aria_slam_tpu_torch.config import DetectorConfig
+    from aria_slam_tpu_torch.models import detector_train as tdt, yolo
+
+    ys = DetectorConfig()
+    model = yolo.init_model(ys, 0, param_dtype=torch.float32).to(DEV)
+    step = tdt.make_train_step(model, tdt.adam(model, 2e-3), ys.input_size, ys.num_classes)
+    rng = np.random.default_rng(4)
+    batches = [tdt.make_synthetic_batch(rng, YOLO_S_BATCH, ys.input_size,
+                                        num_classes=ys.num_classes) for _ in range(2)]
+    census, handles = conv_census(model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    for i in range(YOLO_S_STEPS):
+        census["calls"] = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(step(*batches[i % 2])))
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    for hd in handles:
+        hd.remove()
+    fwd_ops = sum(c["ops"] for c in census["calls"])
+    n_params = sum(p.numel() for p in model.parameters())
+    # the step must read the images, the float32 parameters and Adam's two
+    # moments once and write the three back (activations are its own)
+    nbytes = batches[0][0].nbytes + 6 * 4 * n_params
+    b_ms, by = bound(nbytes, 3 * fwd_ops, BF16_OPS_PER_MS)
+    rec = dict(batch=YOLO_S_BATCH, step_ms=float(np.median(times[2:])), first_ms=times[0],
+               peak_mib=peak, losses=losses, gflop_forward=fwd_ops / 1e9, params=n_params,
+               bound_ms=b_ms, bound_by=by, kernels_a_step=cuda_kernels(lambda: step(*batches[0])))
+    log("train", f"(c) YOLO-s ({ys.input_size} px, width {ys.width_mult}, {ys.num_classes} "
+                 f"classes, {n_params / 1e6:.2f} M parameters) training step in bf16 at B = "
+                 f"{YOLO_S_BATCH}: {rec['step_ms']:.2f} ms a step (median of {YOLO_S_STEPS - 2} "
+                 f"after 2; first {times[0]:.1f} ms), {rec['kernels_a_step']} kernels and copies "
+                 f"a step, peak {peak:.1f} MiB, losses {[round(x, 3) for x in losses]}; bound "
+                 f"{b_ms:.4f} ms ({by}: 3 x {fwd_ops / 1e9:.1f} GFLOP at the bf16 peak against "
+                 f"{nbytes / 1e6:.1f} MB)")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"YOLO-s training loss not finite: {losses}")
+    return rec
+
+
+def train_dp():
+    """Phase 13 (d): the data-parallel step at world size 1 against the
+    plain step, then the dry run, the counts set to 0 just before it.
+    Returns (launches, record)."""
+    from aria_slam_tpu_torch.models import yolo
+    from aria_slam_tpu_torch.ops.cuda import corner_kernel, match_kernel, patch_kernel
+    from aria_slam_tpu_torch.eval import multi_eval
+    from aria_slam_tpu_torch.parallel import dryrun, mesh as mesh_lib, multiseq, sharded_db
+
+    rng = np.random.default_rng(6)
+    images = torch.from_numpy(rng.uniform(0, 1, (4, 3, 64, 64)).astype(np.float32)).to(DEV)
+    targets = [torch.from_numpy(rng.normal(0, 1, (4, 64, s, s)).astype(np.float32)).to(DEV)
+               for s in (8, 4, 2)]
+    models = [yolo.init_model(dryrun.DETECTOR, 0, dtype=torch.float32,
+                              param_dtype=torch.float32).to(DEV) for _ in range(2)]
+    plain = multiseq.detector_train_step(models[0], torch.optim.SGD(models[0].parameters(),
+                                                                    lr=dryrun.LR), device=DEV)
+    l_plain = float(plain(images, targets))
+    with mesh_lib.single_process_group("nccl"):
+        mesh = mesh_lib.make_mesh(1, 1)
+        sharded = multiseq.make_sharded_train_step(mesh, models[1], torch.optim.SGD(
+            models[1].parameters(), lr=dryrun.LR))
+        l_dp = float(sharded(images, targets))
+    gap = max(float((a - b).abs().max()) for a, b in zip(models[0].state_dict().values(),
+                                                          models[1].state_dict().values()))
+    kernels = (corner_kernel.corner_rank_maps, patch_kernel.extract_patches_levels,
+               match_kernel.match_top2_batched)
+    by_part = {part: dict.fromkeys((k.__name__ for k in kernels), 0)
+               for part in ("db", "pairs", "chunk")}
+
+    def counted(part, fn):  # the launches made inside fn, added to by_part[part]
+        def run(*a, **kw):
+            before = [k.launches for k in kernels]
+            out = fn(*a, **kw)
+            for k, n in zip(kernels, before):
+                by_part[part][k.__name__] += k.launches - n
+            return out
+        return run
+
+    real_pairs, real_chunk = multiseq.shard_batched_frontend, multi_eval.make_multi_chunk_frontend
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(sharded_db, "sharded_topk_scores",
+                           counted("db", sharded_db.sharded_topk_scores)), \
+            mock.patch.object(multiseq, "shard_batched_frontend",
+                              lambda *a: counted("pairs", real_pairs(*a))), \
+            mock.patch.object(multi_eval, "make_multi_chunk_frontend",
+                              lambda *a: counted("chunk", real_chunk(*a))):
+        dry = dryrun.run(1, "nccl")[0]
+    torch.cuda.synchronize()
+    dry_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k.__name__: k.launches for k in kernels}
+    rec = dict(loss_plain=l_plain, loss_dp=l_dp, state_gap=gap, dryrun_ms=dry_ms,
+               dryrun_loss=dry["loss"], dryrun_mesh=dry["mesh"], launches=launches,
+               launches_by_part=by_part)
+    log("train", f"(d) the data-parallel step on the one-card NCCL mesh against the plain step "
+                 f"(float32, SGD 1e-3): loss {l_dp:.6f} / {l_plain:.6f}, parameters and "
+                 f"statistics within {gap:.2e}; the dry run (mesh {dry['mesh']}) in "
+                 f"{dry_ms:.0f} ms, loss {dry['loss']:.6f}, DB top {dry['db_top']}, launches "
+                 f"{launches}, by part {by_part}")
+    if not (abs(l_dp - l_plain) <= 1e-6 * abs(l_plain) and gap <= 1e-5
+            and np.isfinite(dry["loss"])):
+        raise AssertionError(f"the data-parallel step at world size 1: {rec}")
+    if any(sum(p[name] for p in by_part.values()) != n for name, n in launches.items()):
+        raise AssertionError(f"dry run launches outside its front ends and DB query: {rec}")
+    return by_part, rec
+
+
+def dry_db_record(dev):
+    """The match kernel at the dry run's DB query shape on one card (N = 8
+    keyframes of F = 64 descriptors, the query repeated for each; the dry
+    run's own draws) against its plain version."""
+    from aria_slam_tpu_torch.ops.cuda import match_kernel as mk
+    from aria_slam_tpu_torch.parallel import dryrun
+
+    rng = np.random.default_rng(1)
+    f, n = dryrun.DB_FEATURES, 8 * dryrun.mesh_shape(1)[1]
+    q = torch.from_numpy(rng.integers(0, 2, (f, 256)).astype(np.int8)).to(dev)
+    db = torch.from_numpy(rng.integers(0, 2, (n, f, 256)).astype(np.int8)).to(dev)
+    rep = q.expand(n, f, 256).contiguous()
+    v = torch.ones(n, f, dtype=torch.bool, device=dev)
+    err = max(int((g.long() - w.long()).abs().max())
+              for g, w in zip(mk.match_top2_batched(rep, db, v), mk.match_top2_plain(rep, db, v)))
+    if err:
+        raise AssertionError(f"match N={n} (dryrun db): max abs error {err}")
+    b_ms, by = match_bound(rep, db, v)
+    rec = dict(name=f"match_top2 N={n} (dryrun db)", path="dryrun", role="db", **MATCH_COMMON,
+               max_abs_err=float(err),
+               ms=graph_ms(lambda: mk.match_top2_batched(rep, db, v), iters=5, replays=4),
+               launch_ms=cuda_ms(lambda: mk.match_top2_batched(rep, db, v), iters=10),
+               plain_ms=graph_ms(lambda: mk.match_top2_plain(rep, db, v), iters=1, replays=2),
+               bound_ms=b_ms, bound_by=by)
+    log("dryrun", f"{rec['name']} equal to its plain version: {rec['ms']:.4f} ms (bound "
+                  f"{b_ms:.5f} ms, {by}; with launch cost {rec['launch_ms']:.4f} ms; plain "
+                  f"{rec['plain_ms']:.4f} ms)")
+    return rec
+
+
+def run_train():
+    """Phase 13: detector training on the card (module docstring, 13).
+    Returns (the dry run's launches by part, record, kernel records at
+    the shapes of each part of the dry run)."""
+    from aria_slam_tpu_torch.parallel import dryrun
+
+    rec = {"learn": train_learn(), **train_card_against_cpu(), "yolo_s": train_yolo_s()}
+    by_part, rec["dp"] = train_dp()
+    rng = np.random.default_rng(7)
+    recs = [dry_db_record(DEV)]
+    recs += multi_records(rng.integers(0, 256, (1, 2, 96, 96)).astype(np.uint8),
+                          dryrun.FRONTEND.orb, DEV, path="dryrun", role="pairs", extract_b=1)
+    recs += multi_records(rng.integers(0, 256, (1, 4, 96, 96)).astype(np.uint8),
+                          dryrun.FRONTEND.orb, DEV, path="dryrun", role="chunk")
+    return by_part, rec, recs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -2335,6 +2952,7 @@ def main() -> int:
     patch_recs, patch_extra = check_patch(frames, orb_cfg, dev, rng)
     extra.update(patch_extra)
     records = corner_recs + patch_recs + match_recs
+    geometry_rec = check_geometry(frames, cam, dev)
 
     # 4. the online slice, 5. the chunked path, 6. loop closure: each with
     # the counts set to 0 just before it and read just after
@@ -2370,16 +2988,20 @@ def main() -> int:
             launches["db"], db_rec, db_kernel = run_db(mesh)
             records.append(db_kernel)
         aux_rec = run_aux(dirs, cam, tmp, dev)
+    # 13. detector training, the data-parallel step and the dry run
+    launches["dryrun"], train_rec, dry_recs = run_train()
+    records += dry_recs
     # the kernels at their shapes on the detection paths: the same device
     # times, the launches of those runs
     for r in list(records):
         det_path = {"online": "detect_online", "chunked": "detect_chunked"}.get(r["path"])
         if det_path and "role" not in r:
             records.append(dict(r, name=f"{r['name']} (detection on)", path=det_path))
-    by_role = {"loop": loop_rec["match_launches"], "online_lc": online_rec["match_launches"]}
+    by_role = {"loop": loop_rec["match_launches"], "online_lc": online_rec["match_launches"],
+               "dryrun": launches["dryrun"]}
     for r in records:
-        r["launches"] = (by_role[r["path"]][r["role"]] if "role" in r
-                         else launches[r["path"]][r["wrapper"]])
+        n = by_role[r["path"]][r["role"]] if "role" in r else launches[r["path"]]
+        r["launches"] = n[r["wrapper"]] if isinstance(n, dict) else n
         if r["launches"] < 1:
             raise AssertionError(f"{r['name']} was not launched on the {r['path']} path")
     if args.profile:
@@ -2395,6 +3017,7 @@ def main() -> int:
                        "slice": slice_rec, "chunked": chunked_rec, "loop": loop_rec,
                        "eval": eval_rec, "online": online_rec, "detect": detect_rec,
                        "multi": multi_rec, "db": db_rec, "aux": aux_rec,
+                       "geometry": geometry_rec, "train": train_rec,
                        "build_s": secs, "ptxas": ptxas, "seconds": time.perf_counter() - t_start,
                        **extra}, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

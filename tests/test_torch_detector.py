@@ -257,14 +257,19 @@ def test_batched_detector_matches_single(weights):
 
 
 def test_random_detector_is_seeded_and_yolo_s_maps_from_flax():
-    """init_model draws from its generator (same seed, same weights); at
-    the published width (DetectorConfig(): YOLO-s, 640 px) the flax tree
-    of the JAX model (shapes by jax.eval_shape) loads with every key
-    consumed, and the head's widths are 64 and 128."""
-    a = yolo.init_model(TINY, torch.Generator().manual_seed(1))
-    b = yolo.init_model(TINY, torch.Generator().manual_seed(1))
+    """init_model draws the JAX package's init for its seed (same seed,
+    same weights; another seed, other kernels: tests/test_torch_train.py
+    holds them against init_params); at the published width
+    (DetectorConfig(): YOLO-s, 640 px) the flax tree of the JAX model
+    (shapes by jax.eval_shape) loads with every key consumed, and the
+    head's widths are 64 and 128."""
+    a = yolo.init_model(TINY, 1)
+    b = yolo.init_model(TINY, 1)
     for (na, ta), (_, tb) in zip(a.state_dict().items(), b.state_dict().items()):
         assert torch.equal(ta, tb), na
+    c = yolo.init_model(TINY, 2)
+    assert not torch.equal(a.state_dict()["DetectHead_0.Conv_0.kernel"],
+                           c.state_dict()["DetectHead_0.Conv_0.kernel"])
     cfg = JaxDetectorConfig()
     model = jyolo.Yolo(cfg.num_classes, cfg.width_mult, cfg.depth_mult)
     shapes = jax.eval_shape(model.init, jax.random.key(0),

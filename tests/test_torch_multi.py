@@ -24,6 +24,7 @@ from aria_slam_tpu import config as jcfg
 from aria_slam_tpu_torch import config as tcfg
 from aria_slam_tpu_torch.eval import multi_eval as tme
 from aria_slam_tpu_torch.ops import match as tmatch
+from aria_slam_tpu_torch.parallel import dryrun as tdryrun
 from aria_slam_tpu_torch.parallel import mesh as tmesh, multiseq as tmultiseq
 from aria_slam_tpu_torch.parallel import sharded_db as tsdb
 
@@ -108,21 +109,35 @@ def test_match_scores_vs_database_equals_jax(db_cases):
 GROUPS = {1: [], 2: [(1, 2)], 4: [(2, 2), (1, 4)]}  # world size: sharded-DB mesh shapes
 
 
+def _train_batch():
+    """Four random images at the dry run's detector size (64 px) and
+    random targets shaped like its box maps (64 channels at strides 8,
+    16, 32), NCHW float32."""
+    rng = np.random.default_rng(8)
+    return (rng.uniform(0, 1, (4, 3, 64, 64)).astype(np.float32),
+            [rng.normal(0, 1, (4, 64, s, s)).astype(np.float32) for s in (8, 4, 2)])
+
+
 @pytest.fixture(scope="module", autouse=True)
 def _spawned(db_cases, scene_dirs):
     """Gloo groups of one, two and four ranks, each started once
     (parallel/mesh.run_jobs) when the module starts and waited for on
     threads of this process while the JAX programs below compile:
-    sharded_topk_scores on meshes of 1 x 2, 2 x 2 and 1 x 4, and
-    run_scenes with the whole group as the data axis (at one and two
-    ranks keeping the trajectories)."""
+    sharded_topk_scores on meshes of 1 x 2, 2 x 2 and 1 x 4, run_scenes
+    with the whole group as the data axis (at one and two ranks keeping
+    the trajectories), the detector's data-parallel train step at one and
+    two data ranks (parallel/dryrun.train_step_rank) and the dry run at two
+    and four ranks (parallel/dryrun.run_rank)."""
     cases = [db_cases["planted"], db_cases["dup"]]
     q, vq, db, dbv = db_cases["planted"]
+    train = (tdryrun.train_step_rank, _train_batch())
+    extra = {1: [train], 2: [train, (tdryrun.run_rank, ())], 4: [(tdryrun.run_rank, ())]}
     with ThreadPoolExecutor(len(GROUPS) + 1) as pool:
         futs = {world: pool.submit(
             tmesh.spawn, tmesh.run_jobs, world, "gloo", timeout_s=SPAWN_TIMEOUT_S,
             args=([(tsdb.query_rank, (shapes, cases, RATIO, TOP_K)),
-                   (tme.run_rank, (scene_dirs, TCFG, CHUNK, 0, False, world < 4))],))
+                   (tme.run_rank, (scene_dirs, TCFG, CHUNK, 0, False, world < 4))]
+                  + extra[world],))
             for world, shapes in GROUPS.items()}
         # 63 keyframes on two model ranks: each rank raises
         futs["ragged"] = pool.submit(tmesh.spawn, tsdb.query_rank, 2, "gloo",
@@ -134,13 +149,18 @@ def _spawned(db_cases, scene_dirs):
 @pytest.fixture(scope="module")
 def ranks(_spawned):
     """Every rank's results: by mesh shape for the sharded DB, by world
-    size for run_scenes."""
+    size for run_scenes, ("train", world) for the data-parallel train step
+    and ("dryrun", world) for the dry run."""
     out = {}
     for world in GROUPS:
         res = _spawned[world].result()
         for j, shape in enumerate(GROUPS[world]):
             out[shape] = [r[0][j] for r in res]
         out[world] = [r[1] for r in res]
+        if world < 4:
+            out[("train", world)] = [r[2] for r in res]
+        if world > 1:
+            out[("dryrun", world)] = [r[-1] for r in res]
     return out
 
 
@@ -347,3 +367,39 @@ def test_sharded_db_needs_a_multiple_of_the_model_axis(_spawned):
     spawn fails the call with a rank's traceback."""
     with pytest.raises(RuntimeError, match="(?s)mesh rank.*ValueError.*does not split"):
         _spawned["ragged"].result()
+
+
+# ------------------------------------------------ the detector's DP step
+def test_dp_train_step_two_ranks_equal_one(ranks):
+    """make_sharded_train_step on two gloo data ranks, two images each,
+    against one rank on all four (a float32 model, one SGD(1e-3) step from
+    init_model): the same loss, parameters and batch-norm running
+    statistics on both ranks within 1e-5. The statistics are the whole
+    batch's because batch norm sums them over the data group; with each
+    rank's own statistics the running means would differ by the two
+    halves' spread."""
+    one = ranks[("train", 1)][0]
+    two = ranks[("train", 2)]
+    for res in two:
+        assert abs(res["loss"] - one["loss"]) <= 1e-5 * abs(one["loss"])
+        assert set(res["state"]) == set(one["state"])
+        for k, w in one["state"].items():
+            np.testing.assert_allclose(res["state"][k], w, rtol=0, atol=1e-5, err_msg=k)
+    # the step did train: the stem's running mean moved off its zero start
+    assert np.abs(one["state"]["YoloBackboneNeck_0.ConvBnAct_0.BatchNorm_0.mean"]).max() > 1e-4
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_dry_run_completes(ranks, world):
+    """parallel/dryrun.run_rank on two ranks (mesh 1 x 2) and four (2 x 2):
+    every part ran on every rank, the data-parallel loss is finite and the
+    same on every rank, the DB query's top-3 is the same on every rank,
+    and the front ends return every data rank's rows."""
+    res = ranks[("dryrun", world)]
+    n_data = world // 2
+    for r in res:
+        assert r["mesh"] == (n_data, 2)
+        assert np.isfinite(r["loss"]) and r["loss"] == res[0]["loss"]
+        assert r["db_top"] == res[0]["db_top"] and len(r["db_top"]) == 3
+        assert r["pairs_R"].shape == (n_data, 3, 3)
+        assert r["chunk_R"].shape == (n_data, 3, 3, 3)
