@@ -96,7 +96,7 @@ def extract(frames: torch.Tensor, cfg: PipelineConfig) -> Features:
 
 
 def pairs(feats: Features, zlast, mlast, sampler, gyro_R, gyro_ok,
-          cfg: PipelineConfig, lag: int, dyn_all=None) -> dict:
+          cfg: PipelineConfig, lag: int, dyn_all=None, live=None) -> dict:
     """The chunk's pair geometry from its C+1 frames of features.
 
     Consecutive pairs are matched once with two ratio gates (strict for
@@ -107,8 +107,9 @@ def pairs(feats: Features, zlast, mlast, sampler, gyro_R, gyro_ok,
     and the track links. zlast / mlast: the previous chunk's last-frame
     unit depths and mask. gyro_R (C, 3, 3) / gyro_ok (C,): per-pair
     rotation priors. dyn_all (C+1, N) bool: the features inside a dynamic
-    object's box, frame by frame (none when None). Returns the reference
-    front end's `out` dict."""
+    object's box, frame by frame (none when None). live (C,) bool: False
+    for a padding pair, which never succeeds (all live when None). Returns
+    the reference front end's `out` dict."""
     dev = feats.xy.device
     K = torch.as_tensor(cfg.camera.K, device=dev)
     nframes, nf = feats.valid.shape
@@ -166,6 +167,12 @@ def pairs(feats: Features, zlast, mlast, sampler, gyro_R, gyro_ok,
                                     cfg.vo_pin_estimator, cfg.vo_pin_sigma_px)
     pins_all, pin_oks_all = epipolar.pin_scale(pz, pgood, cfg.vo_scene_depth)
     delta = delta_all.map(lambda x: x[:c])
+    if live is not None:
+        # a padding pair (the evaluator repeats a sequence's last frame to
+        # fill its last chunk) has zero parallax, so its cheirality test
+        # is decided by rounding; a success would chain and bundle-adjust
+        # a random unit translation
+        delta = delta.replace(success=delta.success & live)
 
     # unit-|t| depths for the scale chain: z1 at the prev frame (scattered
     # to prev slots for the frame shared with the previous pair), z2 at
@@ -339,7 +346,7 @@ class ChunkedSlam:
         return (self._timer.stage(name) if self._timer is not None
                 else contextlib.nullcontext())
 
-    def _frontend(self, frames, gyro_R, gyro_ok) -> dict:
+    def _frontend(self, frames, gyro_R, gyro_ok, live) -> dict:
         feats = extract(frames, self.cfg)
         dyn_all = None
         if self._detector is not None:
@@ -347,7 +354,7 @@ class ChunkedSlam:
             # each chunk, 1 / (C+1) of the detector's work
             dyn_all = box_ops.points_in_dynamic_boxes(feats.xy, self._detector(frames))
         return pairs(feats, self._zlast, self._mlast, self._sampler, gyro_R, gyro_ok,
-                     self.cfg, self.lag, dyn_all)
+                     self.cfg, self.lag, dyn_all, live)
 
     def _chain_scales(self, out, c) -> np.ndarray:
         """Per-pair metric scales. "propagate": s_k = s_{k-1} * ratio_k
@@ -474,7 +481,8 @@ class ChunkedSlam:
     def process_chunk(self, frames: np.ndarray, timestamps,
                       gyro_R=None, gyro_ok=None, imu_window=None) -> None:
         """frames: (C+1, H, W); the first frame must be the previous
-        chunk's last frame (overlap of 1), except in the first call.
+        chunk's last frame (overlap of 1), except in the first call. A
+        pair whose two timestamps are equal is padding and never succeeds.
 
         gyro_R / gyro_ok: optional (C, 3, 3) / (C,) per-pair rotation
         priors from fusion.gyro_prior: a valid prior replaces the two-view
@@ -497,8 +505,11 @@ class ChunkedSlam:
             # frames go up in their own dtype (uint8 from a reader): the
             # front end casts on the device
             fr = torch.from_numpy(np.ascontiguousarray(frames)).to(dev)
+            # a pair of one timestamp twice is padding (euroc_eval repeats
+            # the last frame to fill the last chunk): no motion to measure
+            live = np.diff(np.asarray(timestamps, np.float64)) > 0
             out = self._frontend(fr, torch.from_numpy(np.asarray(gyro_R, np.float32)).to(dev),
-                                 torch.from_numpy(gyro_ok).to(dev))
+                                 torch.from_numpy(gyro_ok).to(dev), torch.from_numpy(live).to(dev))
             # one copy lands every per-pair statistic the host chain reads
             keys = [k for k in _FETCH_KEYS if k in out]
             for k, h in zip(keys, fetch_many([out[k] for k in keys])):

@@ -1,7 +1,9 @@
-"""Detector training on the synthetic-shapes task (counterpart of the JAX
-package's models/detector_train.py): anchor-free assignment, BCE
-classification and distribution focal loss over the box bins, trained
-with Adam.
+"""Detector training (counterpart of the JAX package's
+models/detector_train.py): anchor-free assignment, BCE classification
+and distribution focal loss over the box bins, trained with Adam, on the
+synthetic-shapes task (`train`) or on a rendered scene's moving object
+from its ground-truth boxes (`train_on_scene`, which
+eval/dynamic_benchmark.py runs).
 
 The reference trains the flax model with optax; here the port's
 models/yolo.Yolo trains with torch.optim.Adam (the same update as
@@ -17,6 +19,10 @@ The head maps are NCHW here: a level's box map is (B, 4 reg_max, h, w)
 with the four sides major and the bins minor along the channels, as
 yolo.decode_predictions reads it; the loss moves channels last before it
 reads anchors row-major, as the reference does.
+
+The reference resizes scene frames with cv2.resize(INTER_AREA); the port
+has no OpenCV and resizes with `resize_area`, OpenCV's per-axis weights
+in numpy (within about 3e-5 of OpenCV on the 0-255 scale).
 
 Train on the card and write the JAX package's weight file:
 
@@ -141,6 +147,145 @@ def detection_loss(outs, gt_boxes, gt_cls, gt_valid, input_size: int, num_classe
         pos_sum = pos_sum + p
     denom = torch.clamp(pos_sum, min=1.0)
     return cls_sum / denom + 0.5 * box_sum / denom
+
+
+# ------------------------------------------------- scene (dynamic-object) data
+def load_scene_boxes(scene_dir: str):
+    """Read mav0/cam0/boxes.csv written by io/synthetic_scene.generate
+    (moving_object=True). Returns {ts_ns: (x1, y1, x2, y2)}."""
+    import os
+
+    path = os.path.join(scene_dir, "mav0", "cam0", "boxes.csv")
+    out = {}
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            ts, x1, y1, x2, y2 = line.split(",")
+            out[int(ts)] = (float(x1), float(y1), float(x2), float(y2))
+    return out
+
+
+def _area_weights(src: int, dst: int, area: bool) -> np.ndarray:
+    """(dst, src) weights of one axis of cv2.resize(INTER_AREA), float32
+    as OpenCV holds them. area (both axes shrink): computeResizeAreaTab's
+    cells, each of width min(scale, src - fsx1), a partial edge cell kept
+    only above 1e-3. Otherwise OpenCV's linear path in its area mode: two
+    taps at floor(d * scale), the second weighted by the fractional part
+    of (d + 1) - (sx + 1) / scale, indices clamped to the edge."""
+    inv = dst / src
+    scale = 1.0 / inv  # OpenCV's scale_x, as it derives it
+    w = np.zeros((dst, src), np.float32)
+    for d in range(dst):
+        if area:
+            f1 = d * scale
+            f2 = f1 + scale
+            cell = min(scale, src - f1)
+            s2 = min(int(np.floor(f2)), src - 1)
+            s1 = min(int(np.ceil(f1)), s2)
+            if s1 - f1 > 1e-3:
+                w[d, s1 - 1] += np.float32((s1 - f1) / cell)
+            w[d, s1:s2] += np.float32(1.0 / cell)
+            if f2 - s2 > 1e-3:
+                w[d, s2] += np.float32(min(min(f2 - s2, 1.0), cell) / cell)
+        else:
+            s = int(np.floor(d * scale))
+            f = np.float32((d + 1) - (s + 1) * inv)
+            f = np.float32(0.0) if f <= 0 else f - np.float32(np.floor(f))
+            w[d, min(max(s, 0), src - 1)] += np.float32(1.0) - f
+            w[d, min(max(s + 1, 0), src - 1)] += f
+    return w
+
+
+def resize_area(img: np.ndarray, width: int, height: int) -> np.ndarray:
+    """cv2.resize(img, (width, height), interpolation=cv2.INTER_AREA) of a
+    float32 (H, W) image in numpy, as separable per-axis weights (rows,
+    then columns) accumulated in float64. Within about 3e-5 of OpenCV on
+    the 0-255 scale (OpenCV sums in float32, in its own order), not
+    bit-equal."""
+    h, w = img.shape
+    area = w >= width and h >= height
+    wx = _area_weights(w, width, area).astype(np.float64)
+    wy = _area_weights(h, height, area).astype(np.float64)
+    return (wy @ (img.astype(np.float64) @ wx.T)).astype(np.float32)
+
+
+def make_scene_batch(rng: np.random.Generator, frames, boxes, batch: int,
+                     size: int, max_boxes: int = 4):
+    """Training batch from rendered scene frames + their GT object box.
+
+    frames: list of (H, W) grayscale [0,255]; boxes: aligned list of
+    (x1,y1,x2,y2) or None. Light augmentation (flip + brightness/
+    contrast jitter) -- the detector only needs to generalize across the
+    object's own pose changes within one scene. The reference's arrays for
+    the same rng, its draws in its order; the area resize is resize_area."""
+    h, w = frames[0].shape
+    imgs = np.zeros((batch, size, size, 3), np.float32)
+    gt_boxes = np.zeros((batch, max_boxes, 4), np.float32)
+    gt_cls = np.zeros((batch, max_boxes), np.int32)
+    gt_valid = np.zeros((batch, max_boxes), bool)
+    sx, sy = size / w, size / h
+    for b in range(batch):
+        i = int(rng.integers(0, len(frames)))
+        img = resize_area(frames[i].astype(np.float32), size, size)
+        bb = boxes[i]
+        if bb is not None:
+            x1, y1, x2, y2 = bb[0] * sx, bb[1] * sy, bb[2] * sx, bb[3] * sy
+        if rng.random() < 0.5:
+            img = img[:, ::-1]
+            if bb is not None:
+                x1, x2 = size - x2, size - x1
+        img = np.clip(img * rng.uniform(0.8, 1.2) + rng.uniform(-15, 15),
+                      0, 255) / 255.0
+        imgs[b] = img[..., None]
+        if bb is not None and x2 - x1 > 3 and y2 - y1 > 3:
+            gt_boxes[b, 0] = [x1, y1, x2, y2]
+            gt_cls[b, 0] = 0  # class 0 == COCO "person" (dynamic)
+            gt_valid[b, 0] = True
+    return imgs, gt_boxes, gt_cls, gt_valid
+
+
+def scene_boxes(data, box_map):
+    """The box of each of data's frames, or None: data.image_ts went
+    through float64 seconds (ulp ~0.25 us at the EuRoC epoch), so the ns
+    key cannot be rebuilt exactly -- matched within 10 us."""
+    keys = np.array(sorted(box_map))
+    boxes = []
+    for ts in data.image_ts:
+        tns = ts * 1e9
+        j = int(np.searchsorted(keys, tns))
+        best = None
+        for jj in (j - 1, j):
+            if 0 <= jj < len(keys) and abs(float(keys[jj]) - tns) < 1e4:
+                best = box_map[int(keys[jj])]
+        boxes.append(best)
+    return boxes
+
+
+def train_on_scene(cfg: DetectorConfig, scene_dir: str, steps: int = 800, batch: int = 8,
+                   lr: float = 3e-3, seed: int = 0, verbose: bool = False,
+                   device=None) -> yolo.Yolo:
+    """Train the detector to find the scene's moving object (class 0 =
+    person, a DYNAMIC_CLASS_IDS member) from the scene's ground-truth
+    boxes, from init_model(cfg, seed) on `device` (CUDA unless asked
+    otherwise), on the reference's batches for the same seed. Returns the
+    model in eval mode, float32 kernels and bf16 compute."""
+    from aria_slam_tpu_torch.io import euroc
+    from aria_slam_tpu_torch.pipeline.slam_pipeline import resolve_device
+
+    device = resolve_device(device)
+    data = euroc.load(scene_dir)
+    frames = [euroc.load_image(p) for p in data.image_paths]
+    boxes = scene_boxes(data, load_scene_boxes(scene_dir))
+    model = yolo.init_model(cfg, seed, param_dtype=torch.float32).to(device)
+    step = make_train_step(model, adam(model, lr), cfg.input_size, cfg.num_classes)
+    rng = np.random.default_rng(seed)
+    for i in range(steps):
+        loss = step(*make_scene_batch(rng, frames, boxes, batch, cfg.input_size))
+        if verbose and (i % 50 == 0 or i == steps - 1):
+            print(f"scene-train step {i}: loss {float(loss):.4f}", flush=True)
+    return model.eval()
 
 
 # --------------------------------------------------------------- the trainer

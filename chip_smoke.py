@@ -219,6 +219,29 @@ Phases, one line each; any failure raises and exits non-zero:
               corner and patch at B = 1 frame of 96 x 96 and match at
               N = 1 pair; corner and patch at B = 4 and match at N = 3,
               each record with the launches of its own part.
+14. dynamic -- (a) eval/dynamic_benchmark.run at tests/test_dynamic_filter
+              .py's settings (64 frames of the 320x240 sweep and its
+              moving-panel twin, train_on_scene for 800 steps at seed 0 with
+              TINY_DET, 160 px, in bf16, chunk 16), counts set to 0 just
+              before it: the training's time, ms a step and kernels a step,
+              each evaluator run's Sim3 / scale-fixed ATE, rotation RPE,
+              Umeyama scale and launches (corner 1, patch 1, match 2 a
+              chunk), the verdict; fails unless the report meets
+              tests/test_dynamic_filter.py's three tests with their
+              thresholds. Then the three kernels at the chunk front end's
+              shapes (B = 17 frames of 3 levels, N = 16 pairs at 384
+              features) against their plain versions. (b) the converter:
+              YOLO-s (DetectorConfig(), 80 classes) from init_model written
+              out under ultralytics names, converted back through a .pt
+              (convert_state_dict, and convert_file into the npz that
+              yolo.load_weights reads): the same variables, and the card's
+              forward pass at B = 1, 640 px bit-equal to the original's.
+              (c) the demo's frame body (eval/demo.frame_step, which needs
+              no OpenCV) headless on the slice's 20 frames with the demo's
+              configuration (YOLO-s with detection and dynamic filtering on;
+              loop closure, fusion and mapping off): finite poses, the
+              overlay's arrays on the host, the stats line at frame 20, one
+              launch of each kernel a frame.
 
 The line before the last holds the card's name and power limit as
 nvidia-smi reports them, the one before it the kernels' JSON record (each
@@ -229,8 +252,10 @@ launches counted inside lc_query and verify_batch, at the online loop
 closure's two, with the launches of the online phase, and each kernel at
 the online and chunked shapes once more with the launches of the detect
 phase's runs (b) and (d), the kernels at the multi and db phases'
-shapes with those phases' launches, and at each part of the dry run's
-with that part's launches), and the last line is
+shapes with those phases' launches, at each part of the dry run's
+with that part's launches, at the dynamic benchmark's chunk front end
+with the launches of its three runs, and at the online slice's shapes
+once more with the demo's launches), and the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -240,6 +265,7 @@ import argparse
 import contextlib
 import gc
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -275,8 +301,12 @@ LOOP_TRUE_M = 0.5        # a loop pair is true when its frames lie this close
 DEV = torch.device("cuda")
 
 
+T_START = time.perf_counter()
+
+
 def log(phase: str, msg: str) -> None:
-    print(f"[{phase}] {msg}", flush=True)
+    """One line of the phase, with the seconds since the script started."""
+    print(f"[{phase} {time.perf_counter() - T_START:.0f}s] {msg}", flush=True)
 
 
 def cuda_ms(fn, iters: int = 30, warmup: int = 3, repeats: int = 5) -> float:
@@ -1983,18 +2013,39 @@ def generate_scenes(cam, tmp):
     return dirs
 
 
+def match_record(q, t, v, name: str, path: str) -> dict:
+    """The match kernel on (q, t, v) against its plain version on the
+    card (AssertionError on any difference), timed, with its bound."""
+    from aria_slam_tpu_torch.ops.cuda import match_kernel as mk
+
+    err = max(int((g.long() - w.long()).abs().max())
+              for g, w in zip(mk.match_top2_batched(q, t, v), mk.match_top2_plain(q, t, v)))
+    torch.cuda.empty_cache()
+    if err:
+        raise AssertionError(f"{name}: max abs error {err}")
+    b_ms, by = match_bound(q, t, v)
+    rec = dict(name=name, path=path, **MATCH_COMMON, max_abs_err=float(err),
+               ms=graph_ms(lambda: mk.match_top2_batched(q, t, v), iters=5, replays=4),
+               launch_ms=cuda_ms(lambda: mk.match_top2_batched(q, t, v), iters=10),
+               plain_ms=graph_ms(lambda: mk.match_top2_plain(q, t, v), iters=1, replays=2),
+               bound_ms=b_ms, bound_by=by)
+    torch.cuda.empty_cache()
+    return rec
+
+
 def multi_records(frames, cfg, dev, path: str = "multi", role: str = None,
-                  extract_b: int = None):
+                  extract_b: int = None, lag: int = None):
     """The three kernels at a multi-sequence chunk round's shapes, each
     against its plain version on the card: corner and patch at B = S *
     (C+1) frames (one extract of the round; 68 in the multi phase), or at
     the first extract_b of them when each extract takes that many, match
-    at the round's N = S * C consecutive pairs of those frames' features.
-    path: the run whose launches the records carry; role: the part of
-    that run, when its launches are counted by part."""
+    at the round's N = S * C consecutive pairs of those frames' features,
+    and with `lag` (S = 1) also at the chunk's C + 1 - lag lag pairs
+    (i - lag, i), a record of role "lag". path: the run whose launches
+    the records carry; role: the part of that run, when its launches are
+    counted by part."""
     from aria_slam_tpu_torch.ops import brief, orb
     from aria_slam_tpu_torch.ops.cuda import corner_kernel as ck
-    from aria_slam_tpu_torch.ops.cuda import match_kernel as mk
     from aria_slam_tpu_torch.ops.cuda import patch_kernel as pk
 
     s, cp1 = frames.shape[:2]
@@ -2059,21 +2110,15 @@ def multi_records(frames, cfg, dev, path: str = "multi", role: str = None,
     t = desc[:, :-1].reshape(s * (cp1 - 1), *desc.shape[2:]).contiguous()
     v = valid[:, :-1].reshape(s * (cp1 - 1), -1).contiguous()
     del feats
-    err = max(int((g.long() - w.long()).abs().max())
-              for g, w in zip(mk.match_top2_batched(q, t, v), mk.match_top2_plain(q, t, v)))
-    torch.cuda.empty_cache()
-    if err:
-        raise AssertionError(f"match N={q.shape[0]} ({path}): max abs error {err}")
-    b_ms, by = match_bound(q, t, v)
-    recs.append(dict(name=f"match_top2 N={q.shape[0]} ({label})", path=path, **MATCH_COMMON,
-                     max_abs_err=float(err),
-                     ms=graph_ms(lambda: mk.match_top2_batched(q, t, v), iters=5, replays=4),
-                     launch_ms=cuda_ms(lambda: mk.match_top2_batched(q, t, v), iters=10),
-                     plain_ms=graph_ms(lambda: mk.match_top2_plain(q, t, v), iters=1, replays=2),
-                     bound_ms=b_ms, bound_by=by))
-    torch.cuda.empty_cache()
+    recs.append(match_record(q, t, v, f"match_top2 N={q.shape[0]} ({label})", path))
     if role:
         recs = [dict(r, role=role) for r in recs]
+    if lag:
+        # the lag pairs' match, (i - lag, i): query frame i, train i - lag
+        ql, tl, vl = desc[0, lag:].contiguous(), desc[0, :-lag].contiguous(), valid[0, :-lag]
+        recs.append(dict(match_record(ql, tl, vl.contiguous(),
+                                      f"match_top2 N={ql.shape[0]} ({path} lag pairs)", path),
+                         role="lag"))
     log(path, f"kernels at the {label} shapes, each equal to its plain version: "
         + "; ".join(f"{r['name']} {r['ms']:.4f} ms (bound {r['bound_ms']:.5f} ms, "
                     f"{r['bound_by']}; with launch cost {r['launch_ms']:.4f} ms; plain "
@@ -2633,19 +2678,10 @@ def cpu_card_step(cfg, dtype, batch):
     return lc, lh, gc_, gh, census
 
 
-def train_learn():
-    """Phase 13 (a): the learning gate, train() at seed 0 for
-    CLASS_STEPS steps with its steps timed through its own step function
-    and the model copied after TRAIN_STEPS."""
-    import copy
-
-    from aria_slam_tpu_torch.config import DetectorConfig
-    from aria_slam_tpu_torch.models import detect, detector_train as tdt, yolo
-
-    cfg = DetectorConfig(**TRAIN_CFG)
-    times, kernels_a_step, at_gate = [], {}, {}
-    real_make = tdt.make_train_step
-
+def timed_train_steps(real_make, times: list, kernels_a_step: dict, on_step=None):
+    """A make_train_step whose steps are timed into `times` (ms, each
+    between synchronisations), the eleventh counted under the profiler
+    into kernels_a_step["n"] instead; on_step(n, model) after the n-th."""
     def timed_make(model, *a, **kw):
         step = real_make(model, *a, **kw)
         calls = [0]
@@ -2662,10 +2698,30 @@ def train_learn():
                 loss = step(*args)
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
-            if calls[0] == TRAIN_STEPS:
-                at_gate["model"] = copy.deepcopy(model)
+            if on_step:
+                on_step(calls[0], model)
             return loss
         return timed
+    return timed_make
+
+
+def train_learn():
+    """Phase 13 (a): the learning gate, train() at seed 0 for
+    CLASS_STEPS steps with its steps timed through its own step function
+    and the model copied after TRAIN_STEPS."""
+    import copy
+
+    from aria_slam_tpu_torch.config import DetectorConfig
+    from aria_slam_tpu_torch.models import detect, detector_train as tdt, yolo
+
+    cfg = DetectorConfig(**TRAIN_CFG)
+    times, kernels_a_step, at_gate = [], {}, {}
+
+    def keep_gate_model(n, model):
+        if n == TRAIN_STEPS:
+            at_gate["model"] = copy.deepcopy(model)
+
+    timed_make = timed_train_steps(tdt.make_train_step, times, kernels_a_step, keep_gate_model)
 
     def score(model, n_images):
         det = numpy_detect(detect.make_detector(cfg, model=model, device=DEV), DEV)
@@ -2907,6 +2963,233 @@ def run_train():
     return by_part, rec, recs
 
 
+# ------------------------------------- the dynamic benchmark, the converter, the demo
+DYN_FRAMES = 64          # tests/test_dynamic_filter.py's settings
+DYN_STEPS = 800
+DYN_CHUNK = 16
+
+
+def dynamic_gates(report) -> dict:
+    """tests/test_dynamic_filter.py's three tests on a benchmark report,
+    their thresholds unchanged: {test: passed}."""
+    clean, off, on = report["clean"], report["object_nofilter"], report["object_filtered"]
+    s_clean, s_off, s_on = (abs(math.log(r["umeyama_scale"])) for r in (clean, off, on))
+    rot = max(clean["rpe_rot_deg"] * 8.0, 0.6)
+    return {
+        "moving_object_corrupts": bool(
+            s_off > s_clean + 0.15
+            and off["ate_noscale_rmse_m"] > clean["ate_noscale_rmse_m"] * 1.3
+            and off["rpe_rot_deg"] > clean["rpe_rot_deg"] * 2.0),
+        "trained_detector_filtering_recovers": bool(
+            s_on < s_off * 0.75 and s_on < 0.36
+            and on["ate_noscale_rmse_m"] <= off["ate_noscale_rmse_m"] * 1.05
+            and on["ate_rmse_m"] <= off["ate_rmse_m"] * 1.5 + 0.02),
+        "rotation_robust_with_and_without_filter": bool(
+            off["rpe_rot_deg"] < rot and on["rpe_rot_deg"] < rot),
+    }
+
+
+def run_dynamic(tmp):
+    """Phase 14 (a): eval/dynamic_benchmark.run at tests/test_dynamic_filter
+    .py's settings on the card, the counts set to 0 just before it; the
+    training's steps timed (timed_train_steps), each evaluator run's
+    launches read around it, the match kernel's by call site (the
+    consecutive pairs; the lag pairs, inside ops/match.match_batched).
+    Returns (launches by part {"pairs": ..., "lag": ...}, record, kernel
+    records at the chunk front end's shapes, each of its part)."""
+    from aria_slam_tpu_torch.eval import dynamic_benchmark as db, euroc_eval
+    from aria_slam_tpu_torch.io import euroc
+    from aria_slam_tpu_torch.models import detector_train as tdt
+    from aria_slam_tpu_torch.ops import match as match_ops
+    from aria_slam_tpu_torch.ops.cuda import corner_kernel, match_kernel, patch_kernel
+
+    kernels = (corner_kernel.corner_rank_maps, patch_kernel.extract_patches_levels,
+               match_kernel.match_top2_batched)
+    times, kernels_a_step, spans, runs = [], {}, {}, {}
+    lag_launches = [0]
+    real_train, real_eval, real_lag = tdt.train_on_scene, euroc_eval.run, match_ops.match_batched
+
+    def train(*a, **kw):
+        t0 = time.perf_counter()
+        model = real_train(*a, **kw)
+        torch.cuda.synchronize()
+        spans["train_s"] = time.perf_counter() - t0
+        return model
+
+    def lag_match(*a, **kw):  # chunked.pairs' lag pairs, its only caller here
+        n = match_kernel.match_top2_batched.launches
+        out = real_lag(*a, **kw)
+        lag_launches[0] += match_kernel.match_top2_batched.launches - n
+        return out
+
+    def evaluate(scene, out_dir, **kw):
+        before = [k.launches for k in kernels] + [lag_launches[0]]
+        t0 = time.perf_counter()
+        res = real_eval(scene, out_dir=out_dir, **kw)
+        name = out_dir.rsplit("/", 1)[-1]
+        got = [k.launches for k in kernels] + [lag_launches[0]]
+        runs[name] = dict(wall_s=time.perf_counter() - t0,
+                          chunks=res["stage_n"]["device_chunk"],
+                          launches={k.__name__: n - m
+                                    for k, n, m in zip(kernels, got, before)},
+                          lag_match_launches=got[-1] - before[-1])
+        return res
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    with mock.patch.object(tdt, "make_train_step",
+                           timed_train_steps(tdt.make_train_step, times, kernels_a_step)), \
+            mock.patch.object(tdt, "train_on_scene", train), \
+            mock.patch.object(euroc_eval, "run", evaluate), \
+            mock.patch.object(match_ops, "match_batched", lag_match):
+        report = db.run(f"{tmp}/dynamic", frames=DYN_FRAMES, steps=DYN_STEPS, chunk=DYN_CHUNK,
+                        verbose=False, device=DEV)
+    total_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+    by_part = {"pairs": dict(launches, match_top2_batched=launches["match_top2_batched"]
+                             - lag_launches[0]),
+               "lag": {"match_top2_batched": lag_launches[0]}}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    gates = dynamic_gates(report)
+    step_ms = float(np.median(times[5:]))
+    rec = dict(frames=DYN_FRAMES, steps=DYN_STEPS, chunk=DYN_CHUNK, seed=0, total_s=total_s,
+               train_s=spans["train_s"], step_ms=step_ms,
+               step_ms_p90=float(np.percentile(times[5:], 90)),
+               host_ms_a_step=(1e3 * spans["train_s"] - sum(times)) / DYN_STEPS,
+               kernels_a_step=kernels_a_step["n"], runs=runs, peak_mib=peak, gates=gates,
+               launches_by_part=by_part, report=report)
+    short = ("ate_rmse_m", "ate_noscale_rmse_m", "rpe_rot_deg", "umeyama_scale")
+    log("dynamic", f"(a) dynamic_benchmark.run(frames={DYN_FRAMES}, steps={DYN_STEPS}, chunk="
+                   f"{DYN_CHUNK}, seed 0) on the card in {total_s:.1f} s: train_on_scene "
+                   f"(160 px, width 0.25, batch 8, bf16) {spans['train_s']:.1f} s, "
+                   f"{step_ms:.2f} ms a step (median after 5, p90 {rec['step_ms_p90']:.2f}), "
+                   f"{kernels_a_step['n']} kernels and copies a step, "
+                   f"{rec['host_ms_a_step']:.2f} ms a step on the host outside the step "
+                   f"(batch, resize); "
+                   + "; ".join(f"{name}: {', '.join(f'{k} {report[name][k]}' for k in short)}, "
+                               f"{r['chunks']} chunks in {r['wall_s']:.1f} s, launches "
+                               f"{r['launches']} (match at the lag pairs "
+                               f"{r['lag_match_launches']})" for name, r in runs.items())
+                   + f"; peak {peak:.1f} MiB; verdict {json.dumps(report['verdict'])}; "
+                     f"tests/test_dynamic_filter.py's gates {gates}")
+    for name, r in runs.items():
+        n = r["chunks"]
+        want = {"corner_rank_maps": n, "extract_patches_levels": n, "match_top2_batched": 2 * n}
+        if r["launches"] != want or r["lag_match_launches"] != n:
+            raise AssertionError(f"dynamic {name}: launches {r['launches']}, at the lag pairs "
+                                 f"{r['lag_match_launches']}, expected {want} and {n}")
+    if not all(gates.values()):
+        raise AssertionError(f"the dynamic benchmark on the card misses a gate: {gates}")
+    data = euroc.load(f"{tmp}/dynamic/scene_object")
+    frames = np.stack([euroc.load_image(p) for p in data.image_paths[:DYN_CHUNK + 1]])[None]
+    cfg = db.base_config()
+    lag = max(1, min(cfg.mapper.pair_lag, DYN_CHUNK))  # chunked.ChunkedSlam's
+    recs = multi_records(frames, cfg.orb, DEV, path="dynamic", role="pairs", lag=lag)
+    return by_part, rec, recs
+
+
+def run_convert(tmp):
+    """Phase 14 (b): YOLO-s (DetectorConfig(), 80 classes) from init_model
+    written out under ultralytics names (convert_weights.ultralytics_state
+    _dict), saved as a .pt and converted back (convert_state_dict, and
+    convert_file into the npz read by yolo.load_weights): the same
+    variables, and the card's forward pass at B = 1, 640 px bit-equal to
+    the original's."""
+    from aria_slam_tpu_torch.config import DetectorConfig
+    from aria_slam_tpu_torch.convert import yolo_to_flax
+    from aria_slam_tpu_torch.models import convert_weights as cw, yolo
+
+    cfg = DetectorConfig()
+    model = yolo.init_model(cfg, 0)
+    sd = cw.ultralytics_state_dict(model, cfg)
+    pt, npz = f"{tmp}/yolo_s_ultralytics.pt", f"{tmp}/yolo_s.npz"
+    torch.save(sd, pt)
+    t0 = time.perf_counter()
+    back = cw.convert_state_dict(cw.load_checkpoint(pt), cfg)
+    convert_s = time.perf_counter() - t0
+    cw.convert_file(pt, npz, cfg)
+    from_npz = yolo.load_weights(npz, cfg)
+    want = yolo_to_flax(model)
+    var_equal = all(set(got) == set(want) and all(np.array_equal(got[k], w)
+                                                  for k, w in want.items())
+                    for got in (yolo_to_flax(back), yolo_to_flax(from_npz)))
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    x = torch.rand((1, 3, cfg.input_size, cfg.input_size), generator=gen, device=DEV)
+    with torch.no_grad():
+        ref, *others = ([t for level in m.to(DEV)(x) for t in level]
+                        for m in (model, back, from_npz))
+    diff = max(float((a.float() - b.float()).abs().max()) for o in others for a, b in zip(ref, o))
+    equal = all(torch.equal(a, b) for o in others for a, b in zip(ref, o))
+    rec = dict(keys=len(sd), variables=len(want), convert_s=convert_s, variables_equal=var_equal,
+               forward_bit_equal=equal, max_abs_diff=diff)
+    log("convert", f"(b) YOLO-s ({cfg.num_classes} classes) as an ultralytics state_dict "
+                   f"({len(sd)} keys) -> convert_state_dict in {convert_s:.2f} s and "
+                   f"convert_file -> load_weights: {len(want)} variables equal {var_equal}; the "
+                   f"card's forward at B = 1, {cfg.input_size} px bit-equal {equal} (max abs "
+                   f"difference {diff})")
+    if not (var_equal and equal):
+        raise AssertionError(f"the converter's round trip differs: {rec}")
+    return rec
+
+
+def run_demo(frames, cam):
+    """Phase 14 (c): the demo's frame body (eval/demo.frame_step, no
+    OpenCV) headless on the slice's frames through factory.create on the
+    card, with the demo's configuration (detection and dynamic filtering
+    on, YOLO-s random weights; loop closure, fusion and mapping off) and
+    its stats line at every len(frames)-th frame; counts set to 0 just
+    before it. Gates: finite poses, the overlay's arrays on the host, the
+    stats line at the last frame, one launch of each kernel a frame."""
+    import io
+
+    from aria_slam_tpu_torch.config import PipelineConfig
+    from aria_slam_tpu_torch.eval import demo
+    from aria_slam_tpu_torch.ops.cuda import corner_kernel, match_kernel, patch_kernel
+    from aria_slam_tpu_torch.pipeline import factory
+
+    kernels = (corner_kernel.corner_rank_maps, patch_kernel.extract_patches_levels,
+               match_kernel.match_top2_batched)
+    cfg = PipelineConfig(camera=cam, enable_detection=True, enable_dynamic_filtering=True,
+                         enable_loop_closure=False, enable_fusion=False, enable_mapping=False)
+    pipe = factory.create(config=cfg, device=DEV)
+    n = len(frames)
+    for k in kernels:
+        k.launches = 0
+    fps, poses, overlays, step_ms = 0.0, [], [], []
+    printed = io.StringIO()
+    with mock.patch.object(demo, "STATS_EVERY", n), contextlib.redirect_stdout(printed):
+        for i, img in enumerate(frames):
+            t0 = time.perf_counter()
+            pose, fps, arrays = demo.frame_step(pipe, img, i, fps, FPS, overlay=True)
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            poses.append(pose)
+            overlays.append(arrays)
+    launches = {k.__name__: k.launches for k in kernels}
+    lines = printed.getvalue().splitlines()
+    on_host = all(isinstance(a, np.ndarray) and a.ndim == 2 for o in overlays for a in o.values())
+    kp = [len(o["keypoints"]) for o in overlays]
+    boxes = [len(o["boxes"]) for o in overlays]
+    rec = dict(frames=n, step_ms=step_ms, fps=fps, keypoints=kp, boxes=boxes, stats_lines=lines,
+               launches=launches)
+    log("demo", f"(c) demo.frame_step on {n} frames {cam.width}x{cam.height} (detection and "
+                f"filtering on, YOLO-s): step ms median {np.median(step_ms[1:]):.2f} (first "
+                f"{step_ms[0]:.1f}), running fps {fps:.1f}; overlay keypoints a frame "
+                f"{min(kp)}-{max(kp)}, boxes {min(boxes)}-{max(boxes)}, numpy on the host "
+                f"{on_host}; stats lines {lines}; launches {launches}")
+    want = dict.fromkeys((k.__name__ for k in kernels), n)
+    if launches != want:
+        raise AssertionError(f"demo launch counts {launches}, expected {want}")
+    if not (all(np.isfinite(p).all() for p in poses) and on_host and min(kp) > 0
+            and len(lines) == 1 and lines[0].startswith(f"[{n}] fps=")):
+        raise AssertionError(f"the demo's frame body: {rec}")
+    return launches, rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -2991,14 +3274,22 @@ def main() -> int:
     # 13. detector training, the data-parallel step and the dry run
     launches["dryrun"], train_rec, dry_recs = run_train()
     records += dry_recs
-    # the kernels at their shapes on the detection paths: the same device
-    # times, the launches of those runs
+    # 14. the dynamic benchmark, the converter, the demo's frame body
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dynamic_") as tmp:
+        launches["dynamic"], dynamic_rec, dyn_recs = run_dynamic(tmp)
+        records += dyn_recs
+        convert_rec = run_convert(tmp)
+    launches["demo"], demo_rec = run_demo(frames[:NUM_FRAMES], cam)
+    # the kernels at their shapes on the detection paths and the demo: the
+    # same device times, the launches of those runs
     for r in list(records):
-        det_path = {"online": "detect_online", "chunked": "detect_chunked"}.get(r["path"])
-        if det_path and "role" not in r:
-            records.append(dict(r, name=f"{r['name']} (detection on)", path=det_path))
+        for src, path, label in (("online", "detect_online", "detection on"),
+                                 ("chunked", "detect_chunked", "detection on"),
+                                 ("online", "demo", "demo")):
+            if r["path"] == src and "role" not in r:
+                records.append(dict(r, name=f"{r['name']} ({label})", path=path))
     by_role = {"loop": loop_rec["match_launches"], "online_lc": online_rec["match_launches"],
-               "dryrun": launches["dryrun"]}
+               "dryrun": launches["dryrun"], "dynamic": launches["dynamic"]}
     for r in records:
         n = by_role[r["path"]][r["role"]] if "role" in r else launches[r["path"]]
         r["launches"] = n[r["wrapper"]] if isinstance(n, dict) else n
@@ -3018,6 +3309,7 @@ def main() -> int:
                        "eval": eval_rec, "online": online_rec, "detect": detect_rec,
                        "multi": multi_rec, "db": db_rec, "aux": aux_rec,
                        "geometry": geometry_rec, "train": train_rec,
+                       "dynamic": dynamic_rec, "convert": convert_rec, "demo": demo_rec,
                        "build_s": secs, "ptxas": ptxas, "seconds": time.perf_counter() - t_start,
                        **extra}, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
