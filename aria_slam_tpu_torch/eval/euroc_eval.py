@@ -38,12 +38,11 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
-import torch
 
 from aria_slam_tpu_torch.config import PipelineConfig
 from aria_slam_tpu_torch.eval import metrics
 from aria_slam_tpu_torch.io import euroc
-from aria_slam_tpu_torch.utils.profiling import StageTimer
+from aria_slam_tpu_torch.utils.profiling import StageTimer, device_trace
 
 # The offline EKF runs event by event on this device, whatever device the
 # evaluator runs on: each of its ~5,400 events (257 frames at 10 fps with
@@ -57,16 +56,6 @@ EKF_DEVICE = "cpu"
 # card's host, level with the fastest chunks (299 ms); the walk's time
 # falls with its share of the chunk, so three take about half of that.
 DECODE_PROCESSES = 3
-
-
-def _trace(profile_dir, device):
-    if not profile_dir:
-        return contextlib.nullcontext()
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.device(device).type == "cuda":
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    return torch.profiler.profile(
-        activities=acts, on_trace_ready=torch.profiler.tensorboard_trace_handler(profile_dir))
 
 
 def _run_chunked(data, config, chunk, n_frames, timer, decode_timer, verbose, t_start,
@@ -245,7 +234,7 @@ def run(dataset_path: str, out_dir: str = ".", max_frames: int | None = None,
     decode_timer = StageTimer()  # the decode worker never waits for the card
     chunked = bool(chunk and chunk > 1)
     fused_pos = None
-    with _trace(profile_dir, device):
+    with device_trace(profile_dir, device) if profile_dir else contextlib.nullcontext():
         if chunked:
             pipe, n_skipped, frame_times = _run_chunked(
                 data, config, chunk, n_frames, timer, decode_timer, verbose, t_start, device,

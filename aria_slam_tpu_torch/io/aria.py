@@ -8,7 +8,9 @@ disk images at 33 ms intervals (SURVEY.md row 26). The real device
 adapter needs the proprietary Aria SDK (out of scope in this image);
 the port + mock give the pipeline a live-streaming surface today. The
 mock reads PNGs with the port's own decoder (io/euroc.load_image), so it
-replays *.png files only.
+replays *.png files only. An exception in its streaming thread (a
+callback's or the decoder's) ends the stream, and stop_streaming()
+raises it.
 """
 
 from __future__ import annotations
@@ -70,6 +72,7 @@ class MockAriaDevice:
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
         self.connected = False
+        self.error: Optional[BaseException] = None
 
     def connect(self) -> bool:
         self.connected = len(self._paths) > 0
@@ -96,6 +99,12 @@ class MockAriaDevice:
         self._thread.start()
 
     def _loop(self) -> None:
+        try:
+            self._stream()
+        except BaseException as e:  # stop_streaming raises it
+            self.error = e
+
+    def _stream(self) -> None:
         t0 = time.time()
         for k, path in enumerate(self._paths):
             if self._stop.is_set():
@@ -117,7 +126,10 @@ class MockAriaDevice:
         time.sleep(min(timeout_s, self._interval))
 
     def stop_streaming(self) -> None:
+        """Stop and join the streaming thread; raise what it raised."""
         self._stop.set()
         if self._thread:
             self._thread.join(timeout=2.0)
             self._thread = None
+        if self.error is not None:
+            raise RuntimeError("the device's streaming thread raised") from self.error

@@ -282,12 +282,19 @@ def box_blur_rows(img: np.ndarray, k: int) -> np.ndarray:
     (the default anchor), the border mirrored without repeating the edge
     pixel (BORDER_REFLECT_101), and OpenCV's uint8 rounding of the sum:
     half up, except at power-of-two widths, where it adds k / 2 + 1
-    before the shift (checked against cv2 at widths 2 to 16)."""
+    before the shift (checked against cv2 at widths 2 to 16).
+
+    This copies OpenCV 5.0.0's build as it is, overflow included: at k = 2
+    a sum of two 255s gives 256, which its 16-byte vector lanes saturate
+    to 255 and its scalar tail (the columns past the last whole 16 of a
+    row) stores modulo 256, as 0. No other k exceeds 255."""
     w = img.shape[1]
     pad = np.pad(img.astype(np.int64), ((0, 0), (k // 2, k - 1 - k // 2)), mode="reflect")
     s = sum(pad[:, j:j + w] for j in range(k))
     out = (s + k // 2 + 1) // k if k & (k - 1) == 0 else (2 * s + k) // (2 * k)
-    return np.minimum(out, 255).astype(np.uint8)
+    lanes = w // 16 * 16
+    out[:, :lanes] = np.minimum(out[:, :lanes], 255)
+    return (out & 255).astype(np.uint8)
 
 
 def generate(

@@ -8,7 +8,8 @@ decoupling is a port + an async runner: the SLAM loop submits frames
 with a drop-oldest policy and consumes descriptions whenever they are
 ready. A heuristic mock (detection-summary -> text) stands in for a
 real VLM; any callable `describe(image, detections) -> str` plugs in.
-Detections are the port's (torch tensors, on the card or the CPU).
+Detections are the port's (torch tensors, on the card or the CPU). A
+model that raises stops the worker, and close() raises its exception.
 """
 
 from __future__ import annotations
@@ -62,6 +63,8 @@ class AsyncSceneWorker:
         self._clock = clock or time.monotonic
         self._in: queue.Queue = queue.Queue(maxsize=1)
         self._latest: Optional[SceneDescription] = None
+        self.described = 0  # descriptions made
+        self.error: Optional[BaseException] = None
         self._lock = threading.Lock()
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True)
@@ -93,11 +96,19 @@ class AsyncSceneWorker:
             except queue.Empty:
                 continue
             t0 = self._clock()
-            text = self.model.describe(img, det)
+            try:
+                text = self.model.describe(img, det)
+            except BaseException as e:  # close raises it
+                self.error = e
+                return
             desc = SceneDescription(ts, text, self._clock() - t0)
             with self._lock:
                 self._latest = desc
+                self.described += 1
 
     def close(self):
+        """Stop the worker; raise what the model raised, if it did."""
         self._stop.set()
         self._thread.join(timeout=2.0)
+        if self.error is not None:
+            raise RuntimeError("the scene model raised") from self.error

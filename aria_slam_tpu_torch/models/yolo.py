@@ -40,7 +40,8 @@ flax does: held in bf16, Adam's small steps would round away.
 Random weights: `init_model(cfg, seed)` is the JAX package's
 `init_params(cfg, jax.random.key(seed))`, drawn in numpy by
 models/flax_init.py (lecun-normal kernels, zero biases, batch norm scale
-1, bias 0, mean 0, var 1).
+1, bias 0, mean 0, var 1); `init_params` returns the model with the
+variables in flax's tree, as the JAX function does.
 """
 
 from __future__ import annotations
@@ -323,8 +324,10 @@ def init_model(cfg: DetectorConfig, seed: int = 0, dtype: torch.dtype = torch.bf
     kernel drawn by models/flax_init.py in flax's (kh, kw, in, out) layout
     from the key of its module path, then transposed. Move it with
     .to(device)."""
-    model = make_model(cfg, dtype, param_dtype)
-    root = flax_init.key(seed)
+    return _draw_kernels(make_model(cfg, dtype, param_dtype), flax_init.key(seed))
+
+
+def _draw_kernels(model: Yolo, root: np.ndarray) -> Yolo:
     with torch.no_grad():
         for name, mod in model.named_modules():
             if isinstance(mod, Conv):
@@ -333,6 +336,29 @@ def init_model(cfg: DetectorConfig, seed: int = 0, dtype: torch.dtype = torch.bf
                                            (k, k, cin, cout))
                 mod.kernel.copy_(torch.from_numpy(w.transpose(3, 2, 0, 1).copy()))
     return model
+
+
+def init_params(cfg: DetectorConfig, key=None):
+    """The JAX package's init_params: -> (model, variables). `key` is a
+    seed, a raw key (the two uint32 words of jax.random.key_data) or None
+    for key 0. `model` holds the draws in float32 and computes in bf16, as
+    the flax model does; `variables` is flax's tree ({"params": ...,
+    "batch_stats": ...}) of numpy arrays in flax's layout."""
+    from aria_slam_tpu_torch.convert import yolo_to_flax
+
+    if key is None or isinstance(key, int):
+        root = flax_init.key(key or 0)
+    else:
+        root = np.asarray(key, np.uint32).reshape(2)
+    model = _draw_kernels(make_model(cfg, torch.bfloat16, torch.float32), root)
+    variables: dict = {}
+    for path, v in yolo_to_flax(model).items():
+        *parents, leaf = path.split("/")
+        node = variables
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return model, variables
 
 
 def decode_predictions(outs, input_size: int, num_classes: int, reg_max: int = 16):

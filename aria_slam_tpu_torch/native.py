@@ -101,6 +101,16 @@ def _load() -> ctypes.CDLL:
         return lib
 
 
+def available() -> bool:
+    """Whether the native library builds (at first use) and loads here.
+    Every other entry point raises when it cannot."""
+    try:
+        _load()
+    except (BuildError, OSError):
+        return False
+    return True
+
+
 # --------------------------------------------------------------------- CSV
 def parse_csv(path: str, num_cols: int) -> np.ndarray:
     """The rows of a CSV file ('#' lines skipped) that hold num_cols

@@ -17,6 +17,7 @@ import functools
 import numpy as np
 import torch
 
+from aria_slam_tpu_torch.ops.orient import gather_patches
 from aria_slam_tpu_torch.ops.pyramid import _box_matrix, _sep_matmul, round_bf16
 
 NUM_ANGLE_BINS = 30  # 12-degree steering quantization (ORB paper)
@@ -81,22 +82,42 @@ def _combined_matrix(pattern: np.ndarray, device) -> torch.Tensor:
     return _COMBINED[key]
 
 
+def _pick_bits(diffs: torch.Tensor, angle: torch.Tensor, bits: int) -> torch.Tensor:
+    """(..., K, 30 * bits) bit differences of every angle bin -> the bits
+    (..., K, bits) int8 of each keypoint's own bin."""
+    diffs = diffs.reshape(diffs.shape[:-1] + (NUM_ANGLE_BINS, bits))
+    bin_idx = angle_bin(angle)
+    idx = bin_idx[..., None, None].expand(bin_idx.shape + (1, bits))
+    picked = torch.gather(diffs, -2, idx)[..., 0, :]
+    return (picked > 0).to(torch.int8)
+
+
 def describe_and_orient(patches_flat: torch.Tensor, pattern: np.ndarray):
     """Fused rBRIEF + intensity-centroid orientation from flattened
     39x39 blurred patches (..., K, PATCH_S^2). Returns (bits (..., K, 256)
     int8, angle (..., K) float32)."""
     bits = pattern.shape[0]
     out = round_bf16(patches_flat) @ _combined_matrix(pattern, patches_flat.device).T
-    diffs = out[..., : NUM_ANGLE_BINS * bits]
-    m10 = out[..., -2]
-    m01 = out[..., -1]
-    angle = torch.atan2(m01, m10)
+    angle = torch.atan2(out[..., -1], out[..., -2])  # (m01, m10)
+    return _pick_bits(out[..., : NUM_ANGLE_BINS * bits], angle, bits), angle
 
-    diffs = diffs.reshape(diffs.shape[:-1] + (NUM_ANGLE_BINS, bits))
-    bin_idx = angle_bin(angle)
-    idx = bin_idx[..., None, None].expand(bin_idx.shape + (1, bits))
-    picked = torch.gather(diffs, -2, idx)[..., 0, :]
-    return (picked > 0).to(torch.int8), angle
+
+def describe_from_patches(patches_flat: torch.Tensor, angle: torch.Tensor,
+                          pattern: np.ndarray) -> torch.Tensor:
+    """rBRIEF bits (..., K, bits) int8 of flattened 39x39 blurred patches
+    (..., K, PATCH_S^2), steered by the given angles (..., K) in radians."""
+    bits = pattern.shape[0]
+    sel = _combined_matrix(pattern, patches_flat.device)[: NUM_ANGLE_BINS * bits]
+    return _pick_bits(round_bf16(patches_flat) @ sel.T, angle, bits)
+
+
+def describe(img: torch.Tensor, xy: torch.Tensor, angle: torch.Tensor,
+             pattern: np.ndarray) -> torch.Tensor:
+    """rBRIEF bits (K, bits) int8 of keypoints xy (K, 2) at angles (K,) on
+    one blurred level (H, W); patch centres clamped into the image
+    (orient.gather_patches)."""
+    patches = gather_patches(img, xy, PATCH_R).reshape(xy.shape[0], PATCH_S * PATCH_S)
+    return describe_from_patches(patches, angle, pattern)
 
 
 def angle_bin(angle: torch.Tensor) -> torch.Tensor:
@@ -123,3 +144,11 @@ def pack_bits(desc: torch.Tensor) -> torch.Tensor:
     d = desc.to(torch.int64).reshape(k, bits // 32, 32)
     shifts = torch.arange(32, device=desc.device)
     return (d << shifts).sum(-1)
+
+
+def unpack_bits(packed: torch.Tensor, bits: int = 256) -> torch.Tensor:
+    """(K, bits / 32) packed words (any integer dtype; the low 32 bits of
+    each are read) -> (K, bits) {0,1} int8, the inverse of pack_bits."""
+    shifts = torch.arange(32, device=packed.device)
+    d = (packed.to(torch.int64)[:, :, None] >> shifts) & 1
+    return d.reshape(packed.shape[0], bits).to(torch.int8)

@@ -2,7 +2,8 @@
 JAX package's ops/fast.py).
 
 The ORB front end ranks corners with the fused corner kernel
-(ops/cuda/corner_kernel.py). `rank_map_xla` is the reference's unfused,
+(ops/cuda/corner_kernel.py); `detect_level` is the reference's one-level
+detector on that kernel. `rank_map_xla` is the reference's unfused,
 zero-padded formulation, kept so the tests can hold the kernel's plain
 version against it; convolutions are written as shifted slices (no
 cuDNN, whose float32 convolutions default to TF32).
@@ -101,3 +102,17 @@ def rank_map_xla(img: torch.Tensor, threshold: float,
     score = nms_3x3(fast_score_map(img, threshold))
     harris = harris_response(img, harris_block)
     return torch.where(score > 0.0, harris, float("-inf"))
+
+
+def detect_level(img: torch.Tensor, threshold: float, top_k: int, border: int,
+                 harris_block: int = 7):
+    """FAST corners of one pyramid level (H, W), ranked by Harris response:
+    the corner kernel's rank map (one launch on a CUDA tensor, its plain
+    version on a CPU one) and ORB's border mask and top-k. -> (xy (K, 2)
+    float32 level coordinates, response (K,), valid (K,))."""
+    from aria_slam_tpu_torch.ops.cuda.corner_kernel import corner_rank_maps
+    from aria_slam_tpu_torch.ops.orb import _select_keypoints
+
+    (rank,) = corner_rank_maps([img[None]], threshold, harris_block)
+    xy, response, valid = _select_keypoints(rank, top_k, border)
+    return xy[0], response[0], valid[0]

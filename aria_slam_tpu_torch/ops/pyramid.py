@@ -3,7 +3,8 @@
 Level sizes come from the config; resampling and box filtering are the
 same dense banded matrices as the reference, applied as two matmuls.
 No convolution is used anywhere: cuDNN would run a float32 convolution
-in TF32 by default.
+in TF32 by default (`box_blur`, the reference's float32 convolution
+filter, is shifted slices).
 """
 
 from __future__ import annotations
@@ -91,3 +92,18 @@ def build_pyramid(img: torch.Tensor, num_levels: int,
             _sep_matmul(levels[-1], _bilinear_matrix(hi, hp), _bilinear_matrix(wi, wp))
         )
     return levels
+
+
+def box_blur(img: torch.Tensor, size: int = 5) -> torch.Tensor:
+    """Separable size x size box filter of (H, W) in float32 with edge
+    replication: the mean of `size` rows, then of `size` columns, each a
+    sum of the taps times 1 / size in window order."""
+    r = size // 2
+    h, w = img.shape[-2:]
+    k = torch.tensor(1.0 / size, dtype=img.dtype, device=img.device)
+    rows = torch.arange(-r, h + r, device=img.device).clamp(0, h - 1)
+    p = img[..., rows, :]
+    v = sum(p[..., i: i + h, :] * k for i in range(size))
+    cols = torch.arange(-r, w + r, device=img.device).clamp(0, w - 1)
+    p = v[..., cols]
+    return sum(p[..., i: i + w] * k for i in range(size))

@@ -337,6 +337,7 @@ class SlamPipeline:
         self.state = init_state(self.config, self.device)
         self._ekf_consts = ekf._Consts(self.config.ekf, torch.float32, ekf_device(self.device))
         self._imu_buf: list = []
+        self.imu_consumed = 0  # samples the frames took from the buffer
         self._t0: float | None = None
         self.on_pose: Optional[Callable] = None
         self.on_loop: Optional[Callable] = None
@@ -357,7 +358,10 @@ class SlamPipeline:
 
     def _drain_imu(self, ts: float):
         """The samples up to ts, newest `imu_window` of them, packed first
-        into the padded window -> (t, accel, gyro, valid) host arrays."""
+        into the padded window -> (t, accel, gyro, valid) host arrays.
+        As in the JAX package, the buffer is read and rebuilt in two
+        statements: a sample that process_imu appends from another thread
+        in between is lost (imu_consumed counts the samples taken)."""
         w = self.config.ekf.imu_window
         t = np.zeros(w, np.float32)
         a = np.zeros((w, 3), np.float32)
@@ -365,6 +369,7 @@ class SlamPipeline:
         v = np.zeros(w, bool)
         take = [s for s in self._imu_buf if s[0] <= ts]
         self._imu_buf = [s for s in self._imu_buf if s[0] > ts]
+        self.imu_consumed += len(take)
         for i, (tt, aa, gg) in enumerate(take[-w:]):  # newest w samples
             t[i] = self._rel(tt)
             a[i] = aa

@@ -1,12 +1,15 @@
-"""Per-stage timing (counterpart of the JAX package's utils/profiling.py
-StageTimer).
+"""Per-stage timing and device traces (counterpart of the JAX package's
+utils/profiling.py).
 
-Host wall clock around a named stage. On a CUDA device the stage ends
-with torch.cuda.synchronize(), so the device work a stage launched is
-charged to that stage and not to whichever later stage first waits for
-it. The first event of every stage is kept apart as `warm_ms` (kernel
-builds, allocator growth, library initialisation) and excluded from the
-steady statistics.
+StageTimer: host wall clock around a named stage. On a CUDA device the
+stage ends with torch.cuda.synchronize(), so the device work a stage
+launched is charged to that stage and not to whichever later stage first
+waits for it. The first event of every stage is kept apart as `warm_ms`
+(kernel builds, allocator growth, library initialisation) and excluded
+from the steady statistics.
+
+device_trace: torch.profiler around a region, written as a trace for
+TensorBoard's profiler plugin (the reference's jax.profiler trace).
 """
 
 from __future__ import annotations
@@ -89,3 +92,17 @@ class StageTimer:
                 f"warm {s['warm_ms']:8.1f}  (n={s['count']})"
             )
         return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def device_trace(logdir: str, device=None) -> Iterator[torch.profiler.profile]:
+    """torch.profiler over the region, its trace written under logdir
+    when the region ends; the card's kernels are recorded when `device`
+    (CUDA unless given) is a CUDA device."""
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device("cuda" if device is None else device).type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+            activities=acts,
+            on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir)) as prof:
+        yield prof

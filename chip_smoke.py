@@ -114,17 +114,18 @@ Phases, one line each; any failure raises and exits non-zero:
               rigid / raw ATE and the fused three, loops and their
               precision, frame step ms (median, p90, with and without a
               verify), loop_optimize ms a loop, finalize ms, the online
-              EKF's frame steps replayed on the host and on the card (ms a
-              frame each), launches a frame (match by role: N = 8 scores a
-              frame, N = 5 on verifying frames), peak memory. Fails unless
-              poses are finite, a loop is found at precision >= 0.9, the
+              EKF's first EKF_ROUTE_FRAMES frame steps replayed on the host
+              and on the card (ms a frame each), launches a frame (match by
+              role: N = 8 scores a frame, N = 5 on verifying frames), peak
+              memory. Fails unless poses are finite, a loop is found at
+              precision >= 0.9, the
               fused Sim3 ATE <= 1.1 x that of the chain as published frame
               by frame (what the EKF consumed) + 0.02 m, map.ply holds
               map_points points and the launch counts are the run's. Then
               PipelineConfig() as it is (a 512-keyframe DB, a 200,000-point
-              map, a 4096-node graph) on 40 frames, and
+              map, a 4096-node graph) on ONLINE_DEFAULT_FRAMES frames, and
               online_benchmark.run_mode in sync and in lazy mode (depth 3)
-              on 24 full-width frames: both ms a frame, the trajectories
+              on 16 full-width frames: both ms a frame, the trajectories
               within 1e-5 m.
 9. detect  -- the object detector, YOLO-s at 640 px in bf16
               (DetectorConfig() with the JAX package's random weights of
@@ -139,10 +140,11 @@ Phases, one line each; any failure raises and exits non-zero:
               port on the CPU (logits within DET_LOGIT_TOL of each level's
               largest, the same anchors past the gate outside that band)
               and the card's postprocess and NMS against the CPU's on the
-              card's decoded output (equal). (b) the slice's 20 frames
-              through factory.create_gpu with detection and dynamic
-              filtering on (the slice's VO-only configuration, gate
-              DET_CONF): step median and p90 beside the VO-only slice's,
+              card's decoded output (equal). (b) the slice's first
+              DETECT_ONLINE_FRAMES frames through factory.create_gpu with
+              detection and dynamic filtering on (the slice's VO-only
+              configuration, gate DET_CONF): step median and p90 beside
+              the VO-only slice's,
               the detector's span on the stream, num_filtered a frame,
               launches (corner, patch, match 1 a frame), and the last
               step's detections equal to make_detector's. (c) generate
@@ -156,8 +158,8 @@ Phases, one line each; any failure raises and exits non-zero:
               MIN_BOX_PX a side, filters a match and VO succeeds on 90 %).
               (d) euroc_eval.run(chunk=32) in vio on that directory with
               YOLO-s in the front end (B = 33, no NMS) and without:
-              device_chunk ms, launches (corner 8, patch 8, match 16),
-              peak memory.
+              device_chunk ms, launches (corner 2, patch 2, match 4: 2
+              chunks), peak memory.
 10. multi  -- generate() writes four full-width sweeps of 65 frames (each
               its own period and seed), the pin probe's rotloop and the
               photometric stress scene, in parallel processes.
@@ -242,6 +244,45 @@ Phases, one line each; any failure raises and exits non-zero:
               loop closure, fusion and mapping off): finite poses, the
               overlay's arrays on the host, the stats line at frame 20, one
               launch of each kernel a frame.
+15. navigation -- the product loop (runs after phase 9, on the eval
+              phase's rotloop directory). (a) the example as written,
+              aria_slam_tpu_torch/examples/aria_navigation.run(detect=True)
+              on the first NAV_FRAMES of those 752x480 PNGs at its default
+              33 ms interval: MockAriaDevice -> AsyncSlamPipeline on the
+              native executor (the step launched from its dispatch thread)
+              -> NavigationAudioEngine, with the AsyncSceneWorker narrator,
+              YOLO-s at 640 with the JAX package's random weights, the
+              example's 512 features on 4 levels and 128 hypotheses, the
+              counts set to 0 just before it. Prints frames a second
+              processed, the drop share, the submit-to-collect latency
+              (median, p90), decode / dispatch / collect ms a frame, IMU
+              samples emitted against consumed, whether the fused state
+              stayed finite (the warm-up frame is the time origin, as in
+              the JAX example). Fails unless processed + dropped =
+              submitted, processed >= 8, the results are in timestamp order
+              with finite poses, the audio engine was called once per
+              processed frame with host arrays equal to the detections of
+              that frame or of a later one (guidance reads
+              pipe.last_output), the narrator described at least once, and
+              each kernel launched once a processed frame plus the warm-up.
+              Then the three kernels at the example's shapes (B = 1, 4
+              levels, N = 1 pair of 512 features) against their plain
+              versions. (b) the staged pipeline at PipelineConfig()'s full
+              width (2000 features, 8 levels, 256 hypotheses, loop closure,
+              mapping and fusion as they are) with YOLO-s, detection and
+              dynamic filtering on and drop_threshold 0: NAV_STAGED_FRAMES
+              sweep frames as PNG bytes (the decode stage runs) against
+              decode and process_frame on the main thread, the synchronous
+              route twice around the staged one, each on a fresh pipeline
+              with the same seed and the same IMU. Prints each route's
+              frames a second (whole and steady, after the first frame) and
+              their ratio, and each stage's ms a frame. Fails unless every
+              frame is processed, the staged poses differ from the first
+              synchronous run's by no more than the second's do, the staged
+              Sim3 ATE < 0.35 m, and in the staged run the corner, patch
+              and pair match kernels launched once a frame and the match
+              kernel once a frame more inside the loop closure's candidate
+              scores (N = 8; the verify's N = 5 counted apart).
 
 The line before the last holds the card's name and power limit as
 nvidia-smi reports them, the one before it the kernels' JSON record (each
@@ -254,8 +295,11 @@ the online and chunked shapes once more with the launches of the detect
 phase's runs (b) and (d), the kernels at the multi and db phases'
 shapes with those phases' launches, at each part of the dry run's
 with that part's launches, at the dynamic benchmark's chunk front end
-with the launches of its three runs, and at the online slice's shapes
-once more with the demo's launches), and the last line is
+with the launches of its three runs, at the online slice's shapes
+once more with the demo's launches, at the navigation example's shapes
+with its launches, and at the online slice's and the online loop
+closure's shapes with the staged pipeline's launches), and the last
+line is
 {"ok": true, "device": {...}}.
 """
 
@@ -290,6 +334,8 @@ INT8_OPS_PER_MS = 1979e12 / 1e3
 PLAIN_CORNER_OPS_PER_PX = 16 + 16 + 256 + 30 + 3 + 11 + 14 + 3 + 36 + 7 + 1
 
 NUM_FRAMES = 20          # the online slice
+DETECT_ONLINE_FRAMES = 10  # detect (b): the slice's first 10 frames
+ONLINE_DEFAULT_FRAMES = 20  # the online phase's PipelineConfig() run
 CHUNK = 32
 NUM_CHUNKS = 3
 CHUNKED_FRAMES = NUM_CHUNKS * CHUNK + 1
@@ -1335,7 +1381,8 @@ def run_eval(cam, tmp):
 
 
 # ---------------------------------------------------------------- online
-ONLINE_BENCH_FRAMES = 24  # online_benchmark's frames a mode (4 of them warm-up)
+ONLINE_BENCH_FRAMES = 16  # online_benchmark's frames a mode (4 of them warm-up)
+EKF_ROUTE_FRAMES = 100   # the online EKF's frame steps replayed on each route
 LAZY_DEPTH = 3
 
 
@@ -1384,9 +1431,10 @@ def run_online(cam, tmp, gt, chunked_lc):
     loop_closure._full_scores, the N = 8 candidate scores, and inside
     verify_candidate, the N = 5 verify); frame steps timed with and
     without a verify, each loop's optimisation, finalize, and the EKF's
-    frame steps replayed on both routes. (2) euroc_eval.run with
-    PipelineConfig() as it is (512-keyframe DB, 200,000-point map,
-    4096-node graph) on the first 40 frames. (3) online_benchmark.run_mode
+    first EKF_ROUTE_FRAMES frame steps replayed on both routes. (2)
+    euroc_eval.run with PipelineConfig() as it is (512-keyframe DB,
+    200,000-point map, 4096-node graph) on the first
+    ONLINE_DEFAULT_FRAMES frames. (3) online_benchmark.run_mode
     in sync and in lazy mode on ONLINE_BENCH_FRAMES full-width frames."""
     from aria_slam_tpu_torch.backend import loop_closure
     from aria_slam_tpu_torch.config import PipelineConfig
@@ -1461,7 +1509,7 @@ def run_online(cam, tmp, gt, chunked_lc):
     # the chain as each frame published it (what the EKF consumed; the
     # final chain also has the later loops' and finalize's corrections)
     ate_published = metrics.ate_rmse(np.stack(published), gt)
-    route = ekf_route_ms(ekf_calls, cfg.ekf)
+    route = ekf_route_ms(ekf_calls[:EKF_ROUTE_FRAMES], cfg.ekf)
     rec = dict(res, wall_s=wall_s, peak_mib=peak_mb, precision=precision, true_loops=len(true),
                loop_pairs=pairs, ply_points=ply, launches=launches,
                match_launches=dict(match_launches),
@@ -1487,7 +1535,8 @@ def run_online(cam, tmp, gt, chunked_lc):
                   f"{rec['step_ms_with_verify'] or float('nan'):.2f} ({int(ver.sum())} frames); "
                   f"loop_optimize ms "
                   f"{', '.join(f'{m:.1f}' for m in loop_ms) or 'none'}; finalize "
-                  f"{fin_ms[0]:.1f} ms; EKF ms a frame on the host "
+                  f"{fin_ms[0]:.1f} ms; EKF ms a frame (the first {EKF_ROUTE_FRAMES}) on the "
+                  f"host "
                   f"{route['ms_a_frame']['cpu']:.2f} (the pipeline's route), on the card "
                   f"{route['ms_a_frame']['cuda']:.2f}, positions within "
                   f"{route['max_diff_m']:.2e} m; launches {launches} ({', '.join(f'{k} {v / n:.2f}' for k, v in launches.items())} a frame), "
@@ -1522,19 +1571,21 @@ def run_online(cam, tmp, gt, chunked_lc):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    dres = euroc_eval.run(scene, out_dir=f"{tmp}/online_default", max_frames=40, verbose=False,
-                          chunk=0, keep_pipe=True)
+    dres = euroc_eval.run(scene, out_dir=f"{tmp}/online_default",
+                          max_frames=ONLINE_DEFAULT_FRAMES, verbose=False, chunk=0,
+                          keep_pipe=True)
     dwall = time.perf_counter() - t0
     dpipe = dres.pop("_pipe")
     dpeak = torch.cuda.max_memory_allocated() / 2**20
     dest = np.stack([T[:3, 3] for _, T in dpipe.trajectory])
     sizes = dict(keyframes=dpipe.state.db.desc.shape[0], map=dpipe.state.map_state.points.shape[0],
                  nodes=dpipe.state.graph.node_pose.shape[0])
-    log("online", f"PipelineConfig() as it is ({sizes}): 40 frames in {dwall:.1f} s, "
+    log("online", f"PipelineConfig() as it is ({sizes}): {ONLINE_DEFAULT_FRAMES} frames in "
+                  f"{dwall:.1f} s, "
                   f"steady_frame_ms {dres['steady_frame_ms']:.2f}, Sim3 ATE "
                   f"{dres['ate_rmse_m']:.4f} m, fused {dres['ate_fused_rmse_m']:.4f} m, map "
                   f"{dres['map_points']} points, loops {dres['loops']}; peak memory {dpeak:.1f} MiB")
-    if dest.shape != (40, 3) or not np.isfinite(dest).all():
+    if dest.shape != (ONLINE_DEFAULT_FRAMES, 3) or not np.isfinite(dest).all():
         raise AssertionError("PipelineConfig() online run: a wrong shape or a non-finite pose")
     rec["default_config"] = dict(dres, wall_s=dwall, peak_mib=dpeak, sizes=sizes)
 
@@ -1564,8 +1615,9 @@ DET_CONF = 0.9
 # bf16 logits on the card against the port on the CPU: within this share
 # of the level's largest |logit| (tests/test_torch_detector.py BF16_TOL)
 DET_LOGIT_TOL = 0.03
-MOVING_FRAMES = LOOP_FRAMES   # the moving-object scene: 8 chunks of 32 in part (d)
-MOVING_ONLINE_FRAMES = 120    # part (c) reads the first 120 frames online
+MOVING_CHUNKS = 2             # the moving-object scene: 2 chunks of 32 in part (d)
+MOVING_FRAMES = MOVING_CHUNKS * CHUNK + 1
+MOVING_ONLINE_FRAMES = 20     # part (c) reads the first 20 frames online
 MIN_BOX_PX = 16               # part (c)'s gate counts boxes at least this wide and high
 
 
@@ -1740,13 +1792,13 @@ def run_detect_alone(frames, dev):
 
 
 def run_detect_online(frames, gt, imu, cam, slice_rec):
-    """Part (b): the online slice's 20 frames through factory.create_gpu
-    with detection and dynamic filtering on (the slice's VO-only
-    configuration plus the detector: YOLO-s, random weights, gate
-    DET_CONF), counts set to 0 just before it; the VO-only configuration
-    without the detector runs just before and just after it, since the
-    host-bound steps drift over a long process (the slice phase's own
-    steps are printed beside them)."""
+    """Part (b): the online slice's first DETECT_ONLINE_FRAMES frames
+    through factory.create_gpu with detection and dynamic filtering on
+    (the slice's VO-only configuration plus the detector: YOLO-s, random
+    weights, gate DET_CONF), counts set to 0 just before it; the VO-only
+    configuration without the detector runs just before and just after
+    it, since the host-bound steps drift over a long process (the slice
+    phase's own steps are printed beside them)."""
     import dataclasses
 
     from aria_slam_tpu_torch.config import DetectorConfig, PipelineConfig
@@ -1962,8 +2014,8 @@ def run_detect_moving(cam, tmp):
                       f"{res['stage_ms']['frontend']:.1f} ms a chunk; ATE Sim3 "
                       f"{res['ate_rmse_m']:.4f} m; peak {peak_mb:.1f} MiB; launches "
                       f"{launches[name]}")
-        want = {"corner_rank_maps": LOOP_CHUNKS, "extract_patches_levels": LOOP_CHUNKS,
-                "match_top2_batched": 2 * LOOP_CHUNKS}
+        want = {"corner_rank_maps": MOVING_CHUNKS, "extract_patches_levels": MOVING_CHUNKS,
+                "match_top2_batched": 2 * MOVING_CHUNKS}
         if launches[name] != want:
             raise AssertionError(f"{name} launch counts {launches[name]}, expected {want}")
         if not np.isfinite(est).all():
@@ -3190,6 +3242,281 @@ def run_demo(frames, cam):
     return launches, rec
 
 
+# -------------------------------------------------------- navigation
+NAV_FRAMES = 120         # (a): the first 120 of the eval phase's rotloop PNGs
+NAV_STAGED_FRAMES = 40   # (b): sweep frames a route
+
+
+def _median_p90(x) -> tuple:
+    return float(np.median(x)), float(np.percentile(x, 90))
+
+
+def run_nav_example(tmp, cam):
+    """Phase 15 (a): examples/aria_navigation.run(detect=True) on the card,
+    with factory.create wrapped to keep each step's output (no device
+    read) and the audio engine's process_detections wrapped to keep what
+    it was given; counts set to 0 just before it. -> (launches, record,
+    the first two frames for the kernel records)."""
+    import io
+    import os
+
+    from aria_slam_tpu_torch.examples import aria_navigation as nav
+    from aria_slam_tpu_torch.io.euroc import load_image
+    from aria_slam_tpu_torch.ops.cuda import corner_kernel, match_kernel, patch_kernel
+    from aria_slam_tpu_torch.pipeline import factory
+    from aria_slam_tpu_torch.pipeline.slam_pipeline import fetch_many
+    from aria_slam_tpu_torch.utils import audio
+
+    kernels = (corner_kernel.corner_rank_maps, patch_kernel.extract_patches_levels,
+               match_kernel.match_top2_batched)
+    src = f"{tmp}/rotloop/mav0/cam0/data"
+    nav_dir = f"{tmp}/navigation"
+    os.makedirs(nav_dir)
+    names = sorted(n for n in os.listdir(src) if n.endswith(".png"))[:NAV_FRAMES]
+    for n in names:
+        os.symlink(os.path.join(src, n), os.path.join(nav_dir, n))
+
+    outputs, calls = [], []
+    real_create = factory.create
+    real_process = audio.NavigationAudioEngine.process_detections
+
+    def create(*a, **kw):
+        pipe = real_create(*a, **kw)
+        step = pipe.process_frame
+
+        def process_frame(image, ts):
+            pose = step(image, ts)
+            outputs.append(pipe.last_output)
+            return pose
+
+        pipe.process_frame = process_frame
+        return pipe
+
+    def process_detections(self, boxes, classes, valid, depths=None):
+        host = audio._host(boxes, classes, valid)
+        calls.append((boxes, host))
+        return real_process(self, *host, depths)
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for k in kernels:
+        k.launches = 0
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with mock.patch.object(factory, "create", create), \
+            mock.patch.object(audio.NavigationAudioEngine, "process_detections",
+                              process_detections), contextlib.redirect_stdout(printed):
+        res = nav.run(nav_dir, detect=True)
+    run_s = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in kernels}
+
+    n = res["processed"]
+    ts = [t for t, _ in res["results"]]
+    finite = all(np.isfinite(p).all() for _, p in res["results"])
+    # each audio call: the detections of which dispatched frame (outputs[0]
+    # is the warm-up), and equal to them on the host
+    steps = [o.detections for o in outputs[1:]]
+    src_frame, equal = [], []
+    for k, (boxes, host) in enumerate(calls):
+        j = next((j for j, d in enumerate(steps) if d.boxes is boxes), -1)
+        src_frame.append(j)
+        d = steps[j]
+        equal.append(j >= k and all(np.array_equal(h, w) for h, w in zip(
+            host, fetch_many([d.boxes, d.classes, d.valid]))) and all(
+                isinstance(h, np.ndarray) for h in host))
+    later = sum(j > k for k, j in enumerate(src_frame))
+    st = res["stage_ms"]
+    lat = _median_p90([t["latency"] for t in st])
+    stage = {s: float(np.median([t[s] for t in st])) for s in ("decode", "dispatch", "collect")}
+    lines = printed.getvalue().splitlines()
+    lost = res["imu_emitted"] - res["imu_consumed"] - res["imu_buffered"]
+    rec = dict({k: v for k, v in res.items() if k not in ("results", "stage_ms")},
+               run_s=run_s, fps=n / res["wall_s"], drop_share=res["dropped"] / res["submitted"],
+               latency_ms=lat, stage_ms=stage, imu_lost=lost, audio_from_later=later,
+               dispatch_ms=[t["dispatch"] for t in st],
+               valid_detections=[int(w.sum()) for _, (_, _, w) in calls],
+               scene_lines=sum(x.startswith("[scene]") for x in lines), launches=launches)
+    log("navigation", f"(a) examples/aria_navigation.run(detect=True) on {res['submitted']} "
+                      f"rotloop PNGs {cam.width}x{cam.height} every 33 ms, in {run_s:.1f} s: "
+                      f"{n} processed, {res['dropped']} dropped (share "
+                      f"{rec['drop_share']:.3f}), {rec['fps']:.2f} frames a second processed "
+                      f"over {res['wall_s']:.2f} s; submit-to-collect latency median / p90 "
+                      f"{lat[0]:.1f} / {lat[1]:.1f} ms; ms a frame decode {stage['decode']:.3f} "
+                      f"(arrays from the device thread), dispatch {stage['dispatch']:.2f}, "
+                      f"collect {stage['collect']:.2f} (the first frame's dispatch, the "
+                      f"worker thread's first step, {st[0]['dispatch']:.1f}); IMU samples "
+                      f"emitted "
+                      f"{res['imu_emitted']}, consumed {res['imu_consumed']}, still buffered "
+                      f"{res['imu_buffered']}, lost {lost}; audio calls {res['audio_calls']}, "
+                      f"events {res['audio_events']}, {later} of them with a later frame's "
+                      f"detections; narrator descriptions {res['descriptions']} "
+                      f"({rec['scene_lines']} printed); fused state finite "
+                      f"{res['fused_finite']}; launches {launches}")
+    want = dict.fromkeys((k.__name__ for k in kernels), n + 1)
+    if not (n + res["dropped"] == res["submitted"] and n >= 8):
+        raise AssertionError(f"navigation (a): {n} processed, {res['dropped']} dropped of "
+                             f"{res['submitted']} submitted")
+    if not (ts == sorted(ts) and finite):
+        raise AssertionError("navigation (a): results out of order or a non-finite pose")
+    if not (len(calls) == res["audio_calls"] == n and all(equal)):
+        raise AssertionError(f"navigation (a): {len(calls)} audio calls for {n} frames; "
+                             f"source frames {src_frame}, equal {equal}")
+    if res["descriptions"] < 1:
+        raise AssertionError("navigation (a): the narrator gave no description")
+    if launches != want:
+        raise AssertionError(f"navigation (a) launch counts {launches}, expected {want}")
+    first = np.stack([load_image(os.path.join(nav_dir, x)) for x in names[:2]])[None]
+    del outputs, calls, steps
+    return launches, rec, first
+
+
+def run_nav_staged(frames, gt, imu, cam):
+    """Phase 15 (b): the staged pipeline against synchronous steps at
+    PipelineConfig()'s width with YOLO-s (one detector shared by the three
+    pipelines), sync / staged / sync back to back; counts set to 0 just
+    before the staged run, the match kernel's counted by role as in the
+    online phase (the frame pair; inside loop_closure._full_scores the N =
+    8 candidate scores, inside verify_candidate the N = 5 verify).
+    -> (launches with the pair's match, record)."""
+    from aria_slam_tpu_torch.backend import loop_closure
+    from aria_slam_tpu_torch.config import PipelineConfig
+    from aria_slam_tpu_torch.eval import metrics
+    from aria_slam_tpu_torch.io.euroc import decode_png_gray8, encode_png_gray8
+    from aria_slam_tpu_torch.models.detect import make_detector
+    from aria_slam_tpu_torch.ops.cuda import corner_kernel, match_kernel, patch_kernel
+    from aria_slam_tpu_torch.pipeline import factory
+    from aria_slam_tpu_torch.pipeline.async_pipeline import AsyncSlamPipeline
+
+    kernels = (corner_kernel.corner_rank_maps, patch_kernel.extract_patches_levels,
+               match_kernel.match_top2_batched)
+    n = NAV_STAGED_FRAMES
+    cfg = PipelineConfig(camera=cam, enable_detection=True, enable_dynamic_filtering=True)
+    det = make_detector(cfg.detector, device=DEV)
+    pngs = [encode_png_gray8(np.asarray(f, np.uint8), adaptive=True) for f in frames[:n]]
+    imu_t, imu_a, imu_g = imu
+    feed = np.nonzero(imu_t <= (n - 1) / FPS)[0]
+
+    def fresh():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        pipe = factory.create(config=cfg, device=DEV, detector=det, seed=0)
+        for j in feed:  # the same samples, all before the first frame
+            pipe.process_imu(imu_t[j], imu_a[j], imu_g[j])
+        return pipe
+
+    def sync_route():
+        pipe = fresh()
+        done, dec = [], []
+        t0 = time.perf_counter()
+        for k, b in enumerate(pngs):
+            t1 = time.perf_counter()
+            img = decode_png_gray8(b)
+            dec.append((time.perf_counter() - t1) * 1e3)
+            pipe.process_frame(img, k / FPS)  # its publish reads the pose: synchronised
+            done.append(time.perf_counter())
+        return dict(pipe=pipe, t0=t0, done=done, decode_ms=float(np.median(dec)))
+
+    def staged_route():
+        pipe = fresh()
+        done = []
+        t0 = time.perf_counter()
+        with AsyncSlamPipeline(pipe, drop_threshold=0,
+                               on_result=lambda ts, pose: done.append(time.perf_counter())) as ap:
+            for k, b in enumerate(pngs):
+                ap.submit(k / FPS, raw_bytes=b)
+            results = ap.drain(timeout_s=300.0)
+            timings = list(ap.timings)
+        return dict(pipe=pipe, t0=t0, done=done, results=results, timings=timings)
+
+    match_launches = {"query": 0, "verify": 0}
+
+    def counted(fn, role):
+        def call(*a, **kw):
+            before = match_kernel.match_top2_batched.launches
+            out = fn(*a, **kw)
+            match_launches[role] += match_kernel.match_top2_batched.launches - before
+            return out
+        return call
+
+    runs = {"sync": sync_route()}
+    for k in kernels:
+        k.launches = 0
+    with mock.patch.object(loop_closure, "_full_scores",
+                           counted(loop_closure._full_scores, "query")), \
+            mock.patch.object(loop_closure, "verify_candidate",
+                              counted(loop_closure.verify_candidate, "verify")):
+        runs["staged"] = staged_route()
+    launches = {k.__name__: k.launches for k in kernels}
+    launches["match_top2_batched"] -= sum(match_launches.values())  # the pairs'
+    runs["sync again"] = sync_route()
+
+    poses = {name: np.stack([T for _, T in r["pipe"].trajectory]) for name, r in runs.items()}
+    rec = {}
+    for name, r in runs.items():
+        d = r["done"]
+        rec[name] = dict(frames=len(d), fps=len(d) / (d[-1] - r["t0"]),
+                         steady_fps=(len(d) - 1) / (d[-1] - d[0]))
+    d_sync = float(np.abs(poses["sync again"] - poses["sync"]).max())
+    d_staged = float(np.abs(poses["staged"] - poses["sync"]).max())
+    ate = metrics.ate_rmse(poses["staged"][:, :3, 3], gt[:n])
+    st = runs["staged"]["timings"]
+    stage = {s: float(np.median([t[s] for t in st])) for s in ("decode", "dispatch", "collect")}
+    lat = _median_p90([t["latency"] for t in st])
+    sync_fps = 0.5 * (rec["sync"]["steady_fps"] + rec["sync again"]["steady_fps"])
+    ratio = rec["staged"]["steady_fps"] / sync_fps
+    rec.update(d_sync=d_sync, d_staged=d_staged, ate_m=ate, staged_stage_ms=stage,
+               staged_dispatch_ms=[t["dispatch"] for t in st],
+               staged_latency_ms=lat, steady_ratio=ratio, launches=launches,
+               match_launches=match_launches,
+               sync_decode_ms=[runs[k]["decode_ms"] for k in ("sync", "sync again")],
+               loops=[r["pipe"].num_loops for r in runs.values()])
+    log("navigation", f"(b) PipelineConfig() at {cam.width}x{cam.height} with YOLO-s, "
+                      f"detection and filtering on, {n} sweep frames as PNG bytes (libpng's "
+                      "filters): frames a second whole / steady (after the first frame): "
+                      + ", ".join(f"{k} {v['fps']:.2f} / {v['steady_fps']:.2f}"
+                                  for k, v in rec.items() if k in runs)
+                      + f"; staged over synchronous (steady, against the mean of the two "
+                      f"synchronous runs) {ratio:.3f}; ms a frame in the staged run: decode "
+                      f"{stage['decode']:.2f}, dispatch {stage['dispatch']:.2f}, collect "
+                      f"{stage['collect']:.3f}, submit-to-collect latency median / p90 "
+                      f"{lat[0]:.1f} / {lat[1]:.1f}; decode on the main thread in the "
+                      f"synchronous runs {rec['sync_decode_ms'][0]:.2f} / "
+                      f"{rec['sync_decode_ms'][1]:.2f} ms; poses: staged against sync "
+                      f"{d_staged:.3g}, sync against sync {d_sync:.3g}; staged Sim3 ATE "
+                      f"{ate:.4f} m; loops {rec['loops']}; launches {launches}, match in "
+                      f"_full_scores / verify_candidate {match_launches}")
+    if not all(v["frames"] == n for k, v in rec.items() if k in runs):
+        raise AssertionError(f"navigation (b): frames processed {rec}")
+    if not (np.isfinite(poses["staged"]).all() and d_staged <= d_sync):
+        raise AssertionError(f"navigation (b): staged poses {d_staged} from the synchronous "
+                             f"run's, the two synchronous runs {d_sync} apart")
+    if not ate < 0.35:
+        raise AssertionError(f"navigation (b): staged Sim3 ATE {ate} m (limit 0.35 m)")
+    want = dict.fromkeys((k.__name__ for k in kernels), n)
+    if launches != want or match_launches["query"] != n:
+        raise AssertionError(f"navigation (b) launch counts {launches}, match by role "
+                             f"{match_launches}; expected {want} and {n} candidate scores")
+    return launches, rec
+
+
+def run_navigation(tmp, frames, gt, imu, cam):
+    """Phase 15: (a) the example, (b) the staged pipeline against
+    synchronous steps. -> (launches of (a), of (b), record, kernel
+    records at (a)'s shapes)."""
+    from aria_slam_tpu_torch.config import OrbConfig
+
+    t0 = time.perf_counter()
+    launches_a, rec_a, first = run_nav_example(tmp, cam)
+    recs = multi_records(first, OrbConfig(num_features=512, num_levels=4), DEV,
+                         path="navigation", extract_b=1)
+    launches_b, rec_b = run_nav_staged(frames, gt, imu, cam)
+    rec = {"example": rec_a, "staged": rec_b, "seconds": time.perf_counter() - t0}
+    log("navigation", f"phase 15 in {rec['seconds']:.1f} s")
+    return launches_a, launches_b, rec, recs
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out", help="also write every measurement to this JSON file")
@@ -3257,8 +3584,13 @@ def main() -> int:
         # scene online and in the chunked front end
         detect_rec = {"alone": run_detect_alone(frames, dev)}
         launches["detect_online"], detect_rec["online"] = run_detect_online(
-            frames[:NUM_FRAMES], gt[:NUM_FRAMES], imu, cam, slice_rec)
+            frames[:DETECT_ONLINE_FRAMES], gt[:DETECT_ONLINE_FRAMES], imu, cam, slice_rec)
         launches["detect_chunked"], detect_rec["moving"] = run_detect_moving(cam, tmp)
+        # 15. the navigation loop on the eval phase's PNGs, then the staged
+        # pipeline against synchronous steps
+        launches["navigation"], launches["nav_staged"], nav_rec, nav_recs = run_navigation(
+            tmp, frames, gt, imu, cam)
+        records += nav_recs
     # 10. multi, 11. db (both on a one-card NCCL mesh), 12. aux
     from aria_slam_tpu_torch.parallel import mesh as mesh_lib
 
@@ -3285,11 +3617,17 @@ def main() -> int:
     for r in list(records):
         for src, path, label in (("online", "detect_online", "detection on"),
                                  ("chunked", "detect_chunked", "detection on"),
-                                 ("online", "demo", "demo")):
+                                 ("online", "demo", "demo"),
+                                 ("online", "nav_staged", "navigation staged")):
             if r["path"] == src and "role" not in r:
                 records.append(dict(r, name=f"{r['name']} ({label})", path=path))
+    # the online loop closure's match shapes with the staged run's launches
+    nav_match = nav_rec["staged"]["match_launches"]
+    records += [dict(r, name=f"{r['name']} (navigation staged)", path="nav_staged")
+                for r in list(records) if r["path"] == "online_lc" and nav_match[r["role"]]]
     by_role = {"loop": loop_rec["match_launches"], "online_lc": online_rec["match_launches"],
-               "dryrun": launches["dryrun"], "dynamic": launches["dynamic"]}
+               "dryrun": launches["dryrun"], "dynamic": launches["dynamic"],
+               "nav_staged": nav_match}
     for r in records:
         n = by_role[r["path"]][r["role"]] if "role" in r else launches[r["path"]]
         r["launches"] = n[r["wrapper"]] if isinstance(n, dict) else n
@@ -3310,6 +3648,7 @@ def main() -> int:
                        "multi": multi_rec, "db": db_rec, "aux": aux_rec,
                        "geometry": geometry_rec, "train": train_rec,
                        "dynamic": dynamic_rec, "convert": convert_rec, "demo": demo_rec,
+                       "navigation": nav_rec,
                        "build_s": secs, "ptxas": ptxas, "seconds": time.perf_counter() - t_start,
                        **extra}, f, indent=1)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -52,24 +52,25 @@ def test_imu_benchmark_against_jax():
 @pytest.mark.parametrize("k", [2, 3, 5])
 def test_box_blur_equals_cv2(k):
     """generate()'s motion blur against cv2.blur(img, (k, 1)) on random
-    images, the borders included, and on a saturated row. At k = 2 a
-    saturated sum (510 + the rounding 2) saturates to 255 in OpenCV 5.0's
-    vector lanes, and wraps to 0 in its scalar tail (the columns past the
-    last whole 16); the port saturates everywhere, so there it is held
-    to cv2 on the vector lanes."""
+    images, the borders included, and on a saturated row, every column
+    held. At k = 2 a saturated sum (510 + the rounding 2) saturates to 255
+    in OpenCV 5.0's vector lanes and wraps to 0 in its scalar tail (the
+    columns past the last whole 16), and so it does in the port: the
+    widths 53 and 330 have a tail, 320 has none."""
     import cv2
 
     from aria_slam_tpu_torch.io.synthetic_scene import box_blur_rows
 
     rng = np.random.default_rng(k)
-    for shape in ((37, 53), (4, max(k, 3)), (240, 320)):
+    for shape in ((37, 53), (4, max(k, 3)), (240, 320), (240, 330)):
         img = rng.integers(0, 255, shape).astype(np.uint8)
         np.testing.assert_array_equal(box_blur_rows(img, k), cv2.blur(img, (k, 1)))
         img[0] = 255
         got, want = box_blur_rows(img, k), cv2.blur(img, (k, 1))
-        lanes = shape[1] // 16 * 16 if k == 2 else shape[1]
-        np.testing.assert_array_equal(got[:, :lanes], want[:, :lanes])
-        assert (got[0] == 255).all()
+        np.testing.assert_array_equal(got, want)
+        lanes = shape[1] // 16 * 16
+        assert (got[0, :lanes] == 255).all()
+        assert (got[0, lanes:] == (0 if k == 2 else 255)).all()
 
 
 def test_pin_probe_against_jax(tmp_path, monkeypatch):
