@@ -20,6 +20,7 @@ from aria_slam_tpu_torch.core import lie
 from aria_slam_tpu_torch.core.autodiff import row_jacobian
 from aria_slam_tpu_torch.core.types import PoseGraph
 from aria_slam_tpu_torch.ops.linalg import inv_psd
+from aria_slam_tpu_torch.utils.profiling import span
 
 
 def init_graph(cfg: PoseGraphConfig, device="cuda") -> PoseGraph:
@@ -253,18 +254,25 @@ def _solve_normal_eqs(g: PoseGraph, r, Ji, Jj, lam, cg_iters):
 
 def optimize(g: PoseGraph, cfg: PoseGraphConfig, iterations: int | None = None) -> PoseGraph:
     """LM loop: each iteration solves the damped normal equations by PCG,
-    retracts, and accepts or rejects by cost."""
+    retracts, and accepts or rejects by cost. Each iteration's spans
+    (utils/profiling.span, recorded while a profiler records):
+    pose_graph.linearize (the residuals with their autodiff Jacobians),
+    pose_graph.pcg (_solve_normal_eqs), pose_graph.accept (the retract,
+    the two costs and the accept / reject)."""
     iters = cfg.lm_iterations if iterations is None else iterations
     poses = g.node_pose
     lam = torch.tensor(cfg.init_lambda, dtype=torch.float32, device=poses.device)
     for _ in range(iters):
-        r, Ji, Jj = _edge_residuals_and_jacobians(poses, g)
-        dx = _solve_normal_eqs(g.replace(node_pose=poses), r, Ji, Jj, lam,
-                               cfg.cg_iterations)
-        trial = poses @ lie.se3_exp(dx)
-        accept = _graph_cost(g, trial) < _graph_cost(g, poses)
-        poses = torch.where(accept, trial, poses)
-        lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-9, 1e6)
+        with span("pose_graph.linearize"):
+            r, Ji, Jj = _edge_residuals_and_jacobians(poses, g)
+        with span("pose_graph.pcg"):
+            dx = _solve_normal_eqs(g.replace(node_pose=poses), r, Ji, Jj, lam,
+                                   cfg.cg_iterations)
+        with span("pose_graph.accept"):
+            trial = poses @ lie.se3_exp(dx)
+            accept = _graph_cost(g, trial) < _graph_cost(g, poses)
+            poses = torch.where(accept, trial, poses)
+            lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-9, 1e6)
     return g.replace(node_pose=poses)
 
 

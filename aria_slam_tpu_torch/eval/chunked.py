@@ -31,7 +31,6 @@ frame's boxes.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Optional
 
@@ -45,6 +44,7 @@ from aria_slam_tpu_torch.mapping import export, mapper
 from aria_slam_tpu_torch.ops import boxes as box_ops, epipolar, match as match_ops, orb
 from aria_slam_tpu_torch.ops.undistort import undistort_points
 from aria_slam_tpu_torch.pipeline.slam_pipeline import fetch_many, resolve_device
+from aria_slam_tpu_torch.utils.profiling import count, recording, span
 
 # the least number of loop-closure candidate pairs verified a chunk; the
 # budget is max(VERIFY_MAX, chunk), so the per-frame budget stays the
@@ -68,7 +68,7 @@ BA_PIN_MIN_LANDMARKS = 50.0
 
 # per-pair statistics process_chunk reads on the host, fetched together
 _FETCH_KEYS = ("R", "t", "ok", "pins", "ratios", "rcounts",
-               "pin_oks", "pinl", "okl", "pinokl", "Rl", "tl")
+               "pin_oks", "pinl", "okl", "pinokl", "Rl", "tl", "match_counts")
 
 
 def scatter_last(index: torch.Tensor, values: torch.Tensor, size: int) -> torch.Tensor:
@@ -127,6 +127,12 @@ def pairs(feats: Features, zlast, mlast, sampler, gyro_R, gyro_ok,
     prev_ok = torch.take_along_dim(prev.valid & ~dyn_all[:-1], tidx, 1) & ~dyn
     xy_prev = torch.take_along_dim(prev.xy, tidx[..., None], 1)
     valid = strict & prev_ok
+    match_counts = None
+    if recording():
+        # the dynamic filter's counters: the ratio-passing matches with
+        # valid endpoints, and those it keeps
+        matched = strict & torch.take_along_dim(prev.valid, tidx, 1)
+        match_counts = torch.stack([matched.sum(), valid.sum()])
 
     focal = 0.5 * (K[0, 0] + K[1, 1])
     in_thresh_sq = (cfg.ransac.inlier_threshold_px / focal) ** 2
@@ -202,6 +208,8 @@ def pairs(feats: Features, zlast, mlast, sampler, gyro_R, gyro_ok,
         "desc": cur.desc, "xy": cur.xy, "dvalid": cur.valid & ~dyn,
         "hists": keyframe_db.descriptor_histogram(cur.desc, cur.valid & ~dyn),  # (C, 256)
     }
+    if match_counts is not None:
+        out["match_counts"] = match_counts
 
     if cfg.chunk_ba.enabled:
         # chunk BA inputs: the undistorted keypoints and the consecutive-
@@ -270,8 +278,15 @@ class ChunkedSlam:
     from `sampler` when given (see ops/epipolar.py); the loop
     verification calls it with the stage "loop_essential" /
     "loop_homography". timer: optional utils.profiling.StageTimer for the
-    per-stage breakdown (frontend / chunk_ba / imu_scale / loop_query /
-    state_update / backbone_edges / loop_verify / loop_optimize). With
+    per-stage breakdown. Its spans (utils/profiling.span), each entering
+    the timer: frontend, chunk_ba, imu_scale, loop_query, state_update,
+    backbone_edges, loop_verify, loop_optimize, and finalize.optimize in
+    finalize. Inside them, entering the timer only while a profiler
+    records: frontend.extract, frontend.detect (with the detector's
+    detect.forward / detect.post), frontend.pairs, fetch, and
+    pose_graph.linearize / pcg / accept each LM iteration. Its counters
+    while a profiler records: frontend.matches, frontend.dyn_removed,
+    loop.verified, loop.accepted. With
     enable_detection and enable_dynamic_filtering the front end runs
     models/detect.make_batched_detector(use_nms=False) from
     config.detector_weights (random weights when None)."""
@@ -341,20 +356,18 @@ class ChunkedSlam:
         # multi-view landmark-depth pin correction (config.ba_scale_pin)
         self._ba_corr = 1.0
 
-    def _st(self, name: str):
-        """Stage-timing context (no-op without a timer)."""
-        return (self._timer.stage(name) if self._timer is not None
-                else contextlib.nullcontext())
-
     def _frontend(self, frames, gyro_R, gyro_ok, live) -> dict:
-        feats = extract(frames, self.cfg)
+        with span("frontend.extract"):
+            feats = extract(frames, self.cfg)
         dyn_all = None
         if self._detector is not None:
             # all C+1 frames: the overlap frame's detections are recomputed
             # each chunk, 1 / (C+1) of the detector's work
-            dyn_all = box_ops.points_in_dynamic_boxes(feats.xy, self._detector(frames))
-        return pairs(feats, self._zlast, self._mlast, self._sampler, gyro_R, gyro_ok,
-                     self.cfg, self.lag, dyn_all, live)
+            with span("frontend.detect"):
+                dyn_all = box_ops.points_in_dynamic_boxes(feats.xy, self._detector(frames))
+        with span("frontend.pairs"):
+            return pairs(feats, self._zlast, self._mlast, self._sampler, gyro_R, gyro_ok,
+                         self.cfg, self.lag, dyn_all, live)
 
     def _chain_scales(self, out, c) -> np.ndarray:
         """Per-pair metric scales. "propagate": s_k = s_{k-1} * ratio_k
@@ -501,7 +514,7 @@ class ChunkedSlam:
             gyro_R = np.tile(np.eye(3, dtype=np.float32), (c_pairs, 1, 1))
             gyro_ok = np.zeros((c_pairs,), bool)
         gyro_ok = np.asarray(gyro_ok, bool)
-        with self._st("frontend"):
+        with span("frontend", self._timer):
             # frames go up in their own dtype (uint8 from a reader): the
             # front end casts on the device
             fr = torch.from_numpy(np.ascontiguousarray(frames)).to(dev)
@@ -515,6 +528,10 @@ class ChunkedSlam:
             for k, h in zip(keys, fetch_many([out[k] for k in keys])):
                 out[k] = h
             R, t, ok = out["R"], out["t"], out["ok"]
+        if "match_counts" in out:
+            matched, kept = out["match_counts"]
+            count("frontend.matches", matched)
+            count("frontend.dyn_removed", matched - kept)
         self.last_ok = ok
         self._zlast = out["Z2"][-1]  # stays on the device for the next chunk
         self._mlast = out["M2"][-1]
@@ -559,7 +576,7 @@ class ChunkedSlam:
         # gauge; the refined relative motions replace the two-view rels
         gyro_full = use_gyro and bool(np.all(gyro_ok))
         if cfg.chunk_ba.enabled and "fxy" in out:
-            with self._st("chunk_ba"):
+            with span("chunk_ba", self._timer):
                 refined = self._refine_chunk(out, T_start, poses_np, c, gyro_full,
                                              corr_before)
                 if refined is not None:
@@ -571,7 +588,7 @@ class ChunkedSlam:
         # below when it moved by more than 2 %
         if (cfg.imu_metric_scale and imu_window is not None
                 and cfg.vo_scale_mode != "unit"):
-            with self._st("imu_scale"):
+            with span("imu_scale", self._timer):
                 if self._scale_est is None:
                     from aria_slam_tpu_torch.fusion.vi_init import ScaleEstimator
 
@@ -593,14 +610,14 @@ class ChunkedSlam:
         if cfg.enable_loop_closure:
             # global frame index of each 'cur' frame; node id == frame id
             fids = torch.arange(first_node, first_node + c, dtype=torch.int32, device=dev)
-            with self._st("loop_query"):
+            with span("loop_query", self._timer):
                 query = fetch_many(lc_query(self.db, out["hists"], fids, out["desc"],
                                             out["dvalid"], cfg))
 
         # ---- post-chunk state commit: the pose-graph chain, the
         # keyframe-DB insert and the map insert
         chain_rwt = cfg.pose_graph.gyro_rot_weight if gyro_full else 1.0
-        with self._st("state_update"):
+        with span("state_update", self._timer):
             poses_dev = torch.from_numpy(poses_np).to(dev)
             self.graph = pose_graph.extend_chain(
                 self.graph, poses_dev, torch.from_numpy(rels).to(dev), first_node,
@@ -687,7 +704,7 @@ class ChunkedSlam:
         rels_l[:, :3, :3] = RlT
         rels_l[:, :3, 3] = -np.einsum("nij,nj->ni", RlT, Tl[:, :3, 3])
         dev = self.device
-        with self._st("backbone_edges"):
+        with span("backbone_edges", self._timer):
             self.graph = pose_graph.add_edges_batch(
                 self.graph, torch.from_numpy(i_idx).to(dev), torch.from_numpy(j_idx).to(dev),
                 torch.from_numpy(rels_l).to(dev), cfg.pose_graph.backbone_weight,
@@ -746,7 +763,7 @@ class ChunkedSlam:
                     # gathers from the post-insert one: a candidate slot
                     # this chunk's insert overwrote holds another keyframe
                     live[n_] = (sl[n_] - head_before) % cap >= c
-                with self._st("loop_verify"):
+                with span("loop_verify", self._timer):
                     res = verify_batch(
                         self.db, out["desc"], out["xy"], out["dvalid"], out["Z2"], out["M2"],
                         torch.from_numpy(scales).to(dev),
@@ -758,6 +775,7 @@ class ChunkedSlam:
                         cfg, self.K)
                     passed, n_inl, T_rels, twts, db_fids = fetch_many([*res, self.db.frame_id])
                     passed = passed & live
+                count("loop.verified", len(sel))
                 if diag is not None:
                     diag.update(fidx=fidx.copy(), passed=passed.copy(), n_inliers=n_inl.copy())
                 done_frames: set = set()
@@ -776,8 +794,9 @@ class ChunkedSlam:
                     self.loop_pairs.append((matched_node, node))
                     loop_found = True
                     accepted_pairs.append((int(fidx[n_]), int(sl[n_])))
+                count("loop.accepted", len(accepted_pairs))
                 if loop_found:
-                    with self._st("loop_optimize"):
+                    with span("loop_optimize", self._timer):
                         self.graph = pose_graph.optimize(self.graph, cfg.pose_graph)
         if loop_found:
             # rebase the running pose on the optimised graph
@@ -814,8 +833,9 @@ class ChunkedSlam:
             self._scale_est.rebase_scale(ratio)
 
     def finalize(self):
-        g = pose_graph.optimize(self.graph, self.cfg.pose_graph,
-                                self.cfg.pose_graph.final_lm_iterations)
+        with span("finalize.optimize", self._timer):
+            g = pose_graph.optimize(self.graph, self.cfg.pose_graph,
+                                    self.cfg.pose_graph.final_lm_iterations)
         self.graph = g
         n = len(self.trajectory)
         poses = g.node_pose[:n].cpu().numpy()

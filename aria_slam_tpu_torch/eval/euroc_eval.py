@@ -22,8 +22,10 @@ Usage:
         [--max-frames N] [--vo-only] [--no-loop] [--config cfg.yaml]
         [--chunk N] [--profile DIR]
 
---profile traces the evaluation loop with torch.profiler into DIR (open
-with TensorBoard). Host-side stage times (decode, gyro prior, the
+--profile traces the evaluation loop and the final optimisation with
+torch.profiler into DIR (open with TensorBoard) and prints each span's
+launches, device time and the device's idle time under it
+(utils/profiling.attribute). Host-side stage times (decode, gyro prior, the
 evaluator's stages, the EKF's forward pass and smoother) are always
 reported as `stage_ms`.
 """
@@ -42,7 +44,9 @@ import numpy as np
 from aria_slam_tpu_torch.config import PipelineConfig
 from aria_slam_tpu_torch.eval import metrics
 from aria_slam_tpu_torch.io import euroc
-from aria_slam_tpu_torch.utils.profiling import StageTimer, device_trace
+from aria_slam_tpu_torch.utils.profiling import (
+    StageTimer, attribute, device_trace, format_attribution, span,
+)
 
 # The offline EKF runs event by event on this device, whatever device the
 # evaluator runs on: each of its ~5,400 events (257 frames at 10 fps with
@@ -76,7 +80,7 @@ def _run_chunked(data, config, chunk, n_frames, timer, decode_timer, verbose, t_
         # one worker: calls never overlap, so the last-good carry is safe.
         # The worker only decodes; the main thread uploads.
         nonlocal last_good
-        with decode_timer.stage("decode"):
+        with span("decode", decode_timer):
             hi = min(k + chunk, n_frames - 1)
             idxs = list(range(k, hi + 1))
             if len(idxs) < chunk + 1:  # pad by repeating the last frame
@@ -114,17 +118,17 @@ def _run_chunked(data, config, chunk, n_frames, timer, decode_timer, verbose, t_
         k = 0
         fut = pool.submit(load_chunk, k)
         while k + 1 < n_frames:
-            with timer.stage("decode_wait"):
+            with span("decode_wait", timer):
                 frames, ts, hi = fut.result()
             if hi + 1 < n_frames:
                 fut = pool.submit(load_chunk, hi)
             gR = gok = None
             if use_gyro:
-                with timer.stage("gyro_prior"):
+                with span("gyro_prior", timer):
                     gR, gok = gyro_prior.pair_rotations(data.imu_ts, data.imu_gyro, ts,
                                                         R_cam_imu=data.R_cam_imu)
             f0 = time.perf_counter()
-            with timer.stage("device_chunk"):
+            with span("device_chunk", timer):
                 pipe.process_chunk(frames, ts, gR, gok, imu_window=imu_window)
             frame_times.append((time.perf_counter() - f0) / chunk)
             k = hi
@@ -151,17 +155,17 @@ def _run_online(data, config, n_frames, timer, decode_timer, verbose, t_start, d
     n_skipped = 0
     for k in range(n_frames):
         ts = data.image_ts[k]
-        with decode_timer.stage("decode"):
+        with span("decode", decode_timer):
             img = euroc.load_image_safe(data.image_paths[k])
         if img is None:  # skip and continue (EuRoCReader.cpp:287-291)
             n_skipped += 1
             continue
         imu_t, imu_a, imu_g = euroc.imu_window(data, t_prev, ts)
-        with timer.stage("imu"):
+        with span("imu", timer):
             for j in range(len(imu_t)):
                 pipe.process_imu(imu_t[j], imu_a[j], imu_g[j])
         f0 = time.perf_counter()
-        with timer.stage("frame_step"):
+        with span("frame_step", timer):
             pipe.process_frame(img, ts)
         frame_times.append(time.perf_counter() - f0)
         if fused is not None:
@@ -209,9 +213,10 @@ def run(dataset_path: str, out_dir: str = ".", max_frames: int | None = None,
         keep_pipe: bool = False, lc_diag: bool = False, device=None, sampler=None,
         detector=None) -> dict:
     """chunk > 1: the chunked offline evaluator; chunk = 0: the online
-    per-frame pipeline. profile_dir: a
-    torch.profiler trace of the loop. keep_pipe: the evaluator object
-    under results['_pipe']. lc_diag: collect the chunked evaluator's
+    per-frame pipeline. profile_dir: a torch.profiler trace of the loop
+    and the final optimisation, and the launches, device and idle time by
+    span printed. keep_pipe: the evaluator object under
+    results['_pipe']. lc_diag: collect the chunked evaluator's
     loop-closure diagnostics (ChunkedSlam.lc_diag). device: CUDA unless
     given; sampler: RANSAC draws (see ops/epipolar.py), default a seeded
     torch generator. detector: the online pipeline's object detector
@@ -234,7 +239,7 @@ def run(dataset_path: str, out_dir: str = ".", max_frames: int | None = None,
     decode_timer = StageTimer()  # the decode worker never waits for the card
     chunked = bool(chunk and chunk > 1)
     fused_pos = None
-    with device_trace(profile_dir, device) if profile_dir else contextlib.nullcontext():
+    with device_trace(profile_dir, device) if profile_dir else contextlib.nullcontext() as prof:
         if chunked:
             pipe, n_skipped, frame_times = _run_chunked(
                 data, config, chunk, n_frames, timer, decode_timer, verbose, t_start, device,
@@ -245,7 +250,7 @@ def run(dataset_path: str, out_dir: str = ".", max_frames: int | None = None,
             pipe, n_skipped, frame_times, fused_pos = _run_online(
                 data, config, n_frames, timer, decode_timer, verbose, t_start, device, sampler,
                 detector)
-    pipe.finalize()
+        pipe.finalize()
 
     # every frame unreadable leaves the trajectory empty: NaN metrics
     est_T = (np.stack([T for _, T in pipe.trajectory]) if pipe.trajectory
@@ -318,6 +323,8 @@ def run(dataset_path: str, out_dir: str = ".", max_frames: int | None = None,
             print("==== stage timing ====")
             print(rep)
         if profile_dir:
+            print("==== launches, device and idle time by span ====")
+            print(format_attribution(attribute(prof)))
             print(f"torch.profiler trace written to {profile_dir} (open with TensorBoard)")
     if keep_pipe:
         results["_pipe"] = pipe

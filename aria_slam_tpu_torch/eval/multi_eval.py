@@ -52,6 +52,7 @@ from aria_slam_tpu_torch.eval.euroc_eval import DECODE_PROCESSES
 from aria_slam_tpu_torch.ops import epipolar, match as match_ops
 from aria_slam_tpu_torch.parallel import mesh as mesh_lib
 from aria_slam_tpu_torch.pipeline.slam_pipeline import fetch_many, resolve_device
+from aria_slam_tpu_torch.utils.profiling import span
 
 RANKS_TIMEOUT_S = 24 * 3600.0  # the spawned ranks of main(), all sequences together
 
@@ -63,7 +64,11 @@ def make_multi_chunk_frontend(cfg: PipelineConfig):
     pair (q, i) is frames (q, i) -> (q, i + 1). The translation is
     re-solved under the gyro rotation where there is one, as in
     eval/chunked.py, so (R, t) stay consistent. sampler: the RANSAC draws
-    for the S * C pairs in (S, C) row-major order (ops/epipolar.py)."""
+    for the S * C pairs in (S, C) row-major order (ops/epipolar.py).
+    Spans (utils/profiling.span): multi.extract (ORB and the
+    undistortion of the S * (C+1) frames), multi.match (the match and
+    the correspondence masks), multi.ransac (estimate_pose_gyro_fused),
+    multi.pins (pin_depths and pin_scale)."""
     focal = 0.5 * (cfg.camera.fx + cfg.camera.fy)
     in_thresh_sq = (cfg.ransac.inlier_threshold_px / focal) ** 2
 
@@ -71,20 +76,24 @@ def make_multi_chunk_frontend(cfg: PipelineConfig):
         s, cp1, h, w = frames.shape
         c = cp1 - 1
         K = torch.as_tensor(cfg.camera.K, dtype=torch.float32, device=frames.device)
-        feats = extract(frames.reshape(s * cp1, h, w), cfg)
-        feats = feats.map(lambda x: x.reshape(s, cp1, *x.shape[1:]))
-        prev = feats.map(lambda x: x[:, :-1].reshape(s * c, *x.shape[2:]))
-        cur = feats.map(lambda x: x[:, 1:].reshape(s * c, *x.shape[2:]))
-        m = match_ops.match_batched(cur, prev, cfg.matcher.ratio)
-        tidx = m.train_idx.long()
-        xy_prev = torch.take_along_dim(prev.xy, tidx[..., None], 1)
-        valid = m.valid & torch.take_along_dim(prev.valid, tidx, 1)
-        delta = epipolar.estimate_pose_gyro_fused(
-            xy_prev, cur.xy, valid, K, cfg.ransac, sampler, gyro_R.reshape(s * c, 3, 3),
-            gyro_ok.reshape(s * c), in_thresh_sq)
-        pz, pgood = epipolar.pin_depths(delta, xy_prev, cur.xy, valid, K,
-                                        cfg.vo_pin_estimator, cfg.vo_pin_sigma_px)
-        pins, pin_oks = epipolar.pin_scale(pz, pgood, cfg.vo_scene_depth)
+        with span("multi.extract"):
+            feats = extract(frames.reshape(s * cp1, h, w), cfg)
+            feats = feats.map(lambda x: x.reshape(s, cp1, *x.shape[1:]))
+        with span("multi.match"):
+            prev = feats.map(lambda x: x[:, :-1].reshape(s * c, *x.shape[2:]))
+            cur = feats.map(lambda x: x[:, 1:].reshape(s * c, *x.shape[2:]))
+            m = match_ops.match_batched(cur, prev, cfg.matcher.ratio)
+            tidx = m.train_idx.long()
+            xy_prev = torch.take_along_dim(prev.xy, tidx[..., None], 1)
+            valid = m.valid & torch.take_along_dim(prev.valid, tidx, 1)
+        with span("multi.ransac"):
+            delta = epipolar.estimate_pose_gyro_fused(
+                xy_prev, cur.xy, valid, K, cfg.ransac, sampler, gyro_R.reshape(s * c, 3, 3),
+                gyro_ok.reshape(s * c), in_thresh_sq)
+        with span("multi.pins"):
+            pz, pgood = epipolar.pin_depths(delta, xy_prev, cur.xy, valid, K,
+                                            cfg.vo_pin_estimator, cfg.vo_pin_sigma_px)
+            pins, pin_oks = epipolar.pin_scale(pz, pgood, cfg.vo_scene_depth)
         return tuple(x.reshape(s, c, *x.shape[1:])
                      for x in (delta.R, delta.t, delta.success, pins, pin_oks))
 
@@ -126,11 +135,14 @@ def run_scenes(scene_dirs: Sequence[str], config: PipelineConfig | None = None,
     `device` (CUDA unless asked otherwise). sampler: replaces the
     per-sequence generators for the whole batch (tests replay the JAX
     package's draws with it). timer: a utils.profiling.StageTimer,
-    charged "decode_wait" (the wait for the round's frames, decoded in
-    child processes during the previous round), "frontend" (with the
-    results' host read), "chain" and the whole "round" a round; the
-    run's start (reading the sequences, starting the decode processes)
-    and its scoring are outside every stage."""
+    entered by the spans (utils/profiling.span) "decode_wait" (the wait
+    for the round's frames, decoded in child processes during the
+    previous round), "frontend" (with the results' host read: inside it
+    the front end's multi.extract / multi.match / multi.ransac /
+    multi.pins and fetch_many's fetch, which enter the timer only while a
+    profiler records), "chain" and the whole "round" a round; the run's
+    start (reading the sequences, starting the decode processes) and its
+    scoring are outside every span."""
     from aria_slam_tpu_torch.eval import metrics
     from aria_slam_tpu_torch.fusion import gyro_prior
     from aria_slam_tpu_torch.io import euroc
@@ -160,8 +172,6 @@ def run_scenes(scene_dirs: Sequence[str], config: PipelineConfig | None = None,
     if sampler is None and mine:
         sampler = SequenceSampler([torch.Generator(device=dev).manual_seed(sequence_seed(seed, q))
                                    for q in mine])
-    stage = timer.stage if timer is not None else (lambda name: contextlib.nullcontext())
-
     use_gyro = config.gyro_chain_rotation and all(len(d.imu_ts) for d in datas)
     T = {q: np.eye(4, dtype=np.float32) for q in mine}
     trajs = {q: [(datas[q].image_ts[0], np.eye(4, dtype=np.float32))] for q in mine}
@@ -205,8 +215,8 @@ def run_scenes(scene_dirs: Sequence[str], config: PipelineConfig | None = None,
             fut = pool.submit(load_round, 0)
         k = 0
         while mine and k + 1 < n_frames:
-            with stage("round"):
-                with stage("decode_wait"):
+            with span("round", timer):
+                with span("decode_wait", timer):
                     hi, idxs, imgs = fut.result()
                 if hi + 1 < n_frames:
                     fut = pool.submit(load_round, hi)
@@ -220,11 +230,11 @@ def run_scenes(scene_dirs: Sequence[str], config: PipelineConfig | None = None,
                         d = datas[q]
                         gRs[j], goks[j] = gyro_prior.pair_rotations(
                             d.imu_ts, d.imu_gyro, ts_all[q], R_cam_imu=d.R_cam_imu)
-                with stage("frontend"):
+                with span("frontend", timer):
                     R, t, ok, pins, pin_oks = fetch_many(frontend(
                         torch.from_numpy(frames).to(dev), sampler, torch.from_numpy(gRs).to(dev),
                         torch.from_numpy(goks).to(dev)))
-                with stage("chain"):
+                with span("chain", timer):
                     for j, q in enumerate(mine):
                         d, ts = datas[q], ts_all[q]
                         for i in range(chunk):

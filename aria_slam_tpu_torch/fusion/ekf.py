@@ -24,8 +24,6 @@ fused pose's 6 x 6 marginal.
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
@@ -33,6 +31,7 @@ from aria_slam_tpu_torch.config import EkfConfig
 from aria_slam_tpu_torch.core import lie
 from aria_slam_tpu_torch.core.types import EkfState
 from aria_slam_tpu_torch.ops.linalg import cholesky_solve, inv_psd
+from aria_slam_tpu_torch.utils.profiling import span
 
 
 def init_state(dtype=torch.float32, device="cuda") -> EkfState:
@@ -308,7 +307,8 @@ def run_sequence(imu_t, imu_accel, imu_gyro, vo_t, vo_R, vo_t_pos, cfg: EkfConfi
     or tensors; the filter runs on `device` (default: the device of
     `imu_accel` when it is a tensor, else the CPU). imu_t and vo_t must
     each be non-decreasing: host arrays are checked. timer: an optional
-    utils.profiling.StageTimer, charged "ekf_forward" and "ekf_smoother".
+    utils.profiling.StageTimer, entered by the spans "ekf_forward" and
+    "ekf_smoother".
     -> (pos (V, 3), quat (V, 4)) on that device."""
     _check_sorted("imu_t", imu_t)
     _check_sorted("vo_t", vo_t)
@@ -333,15 +333,12 @@ def run_sequence(imu_t, imu_accel, imu_gyro, vo_t, vo_R, vo_t_pos, cfg: EkfConfi
     slot = torch.cat([torch.full((m,), v, dtype=torch.int64, device=device),
                       torch.arange(v, device=device)])[order]
 
-    def stage(name):
-        return timer.stage(name) if timer is not None else contextlib.nullcontext()
-
     k = _Consts(cfg, dtype, device)
     s = init_state(dtype, device)
     is_vo = tags.cpu().numpy() == 1  # the one host read: which step each event takes
     hist = {name: [] for name in ("pos", "quat", "P", "F", "dx", "barrier")}
     no_barrier = torch.tensor(False, device=device)
-    with stage("ekf_forward"):
+    with span("ekf_forward", timer):
         for e in range(m + v):
             if is_vo[e]:
                 s, dx, did_init = _update_core(s, payload_R[e], payload_a[e], all_t[e], cfg,
@@ -355,7 +352,7 @@ def run_sequence(imu_t, imu_accel, imu_gyro, vo_t, vo_R, vo_t_pos, cfg: EkfConfi
                 hist[name].append(x)
         pos_hist, quat_hist = torch.stack(hist["pos"]), torch.stack(hist["quat"])
     if smooth:
-        with stage("ekf_smoother"):
+        with span("ekf_smoother", timer):
             pos_hist, quat_hist = _rts_backward(
                 pos_hist, quat_hist, torch.stack(hist["P"]), torch.stack(hist["F"]),
                 torch.stack(hist["dx"]), torch.stack(hist["barrier"]), tags)

@@ -20,6 +20,7 @@ from aria_slam_tpu_torch.models import yolo
 from aria_slam_tpu_torch.ops import boxes as box_ops
 from aria_slam_tpu_torch.ops.pyramid import _bilinear_matrix, _sep_matmul
 from aria_slam_tpu_torch.ops.topk import top_k_stable
+from aria_slam_tpu_torch.utils.profiling import span
 
 # the random detector's seed when no model or weights are given: the JAX
 # package's init_params(cfg) draws from jax.random.key(0)
@@ -105,14 +106,18 @@ def make_batched_detector(cfg: DetectorConfig, model: Optional[yolo.Yolo] = None
 
     use_nms=False skips NMS: the dynamic filter only tests point
     containment, which suppressed near-duplicate boxes do not change, and
-    greedy NMS is max_detections sequential rounds."""
+    greedy NMS is max_detections sequential rounds. Spans
+    (utils/profiling.span): detect.forward (the resize and the model),
+    detect.post (the gate, the top-k and NMS when use_nms)."""
     from aria_slam_tpu_torch.pipeline.slam_pipeline import resolve_device
 
     model = _resolve_model(cfg, model, weights_path, resolve_device(device))
 
     def detect_batch(images: torch.Tensor) -> Detections:
         _, h, w = images.shape
-        bxs, scores = _forward(model, cfg, images)
-        return _postprocess(bxs, scores, cfg, h, w, use_nms=use_nms)
+        with span("detect.forward"):
+            bxs, scores = _forward(model, cfg, images)
+        with span("detect.post"):
+            return _postprocess(bxs, scores, cfg, h, w, use_nms=use_nms)
 
     return detect_batch

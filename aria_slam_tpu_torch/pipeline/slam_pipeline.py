@@ -50,6 +50,7 @@ from aria_slam_tpu_torch.fusion import ekf
 from aria_slam_tpu_torch.mapping import export, mapper
 from aria_slam_tpu_torch.ops import boxes, epipolar, match as match_ops, orb
 from aria_slam_tpu_torch.ops.undistort import undistort_points
+from aria_slam_tpu_torch.utils.profiling import span
 
 # The online EKF runs on the host whatever device the step runs on: a
 # frame's 10-20 predicts and one update are a few dozen 15 x 15 ops each,
@@ -80,9 +81,12 @@ _NP_DTYPES = {torch.bool: np.bool_, torch.uint8: np.uint8, torch.int8: np.int8,
 def fetch_many(tensors) -> list:
     """Several device tensors as numpy arrays through ONE copy to the
     host: their bytes are concatenated on the device, copied once and
-    viewed back, so every dtype arrives exactly (bool, int32, float32)."""
+    viewed back, so every dtype arrives exactly (bool, int32, float32).
+    Span "fetch" (utils/profiling.span): the copy, with the host's wait
+    for the device."""
     flat = [t.contiguous().reshape(-1).view(torch.uint8) for t in tensors]
-    host = torch.cat(flat).cpu().numpy()
+    with span("fetch"):
+        host = torch.cat(flat).cpu().numpy()
     outs, off = [], 0
     for t, f in zip(tensors, flat):
         n = f.numel()
