@@ -13,6 +13,8 @@ Residual (right perturbation): r_e = log(T_meas^-1 (T_i e^xi_i)^-1 (T_j e^xi_j))
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from aria_slam_tpu_torch.config import PoseGraphConfig
@@ -20,7 +22,7 @@ from aria_slam_tpu_torch.core import lie
 from aria_slam_tpu_torch.core.autodiff import row_jacobian
 from aria_slam_tpu_torch.core.types import PoseGraph
 from aria_slam_tpu_torch.ops.linalg import inv_psd
-from aria_slam_tpu_torch.utils.profiling import span
+from aria_slam_tpu_torch.utils.profiling import count, span
 
 
 def init_graph(cfg: PoseGraphConfig, device="cuda") -> PoseGraph:
@@ -252,28 +254,118 @@ def _solve_normal_eqs(g: PoseGraph, r, Ji, Jj, lam, cg_iters):
     return x
 
 
+class _LMStep:
+    """One LM iteration over buffers it updates in place: `graph` (the
+    graph's fields, its node_pose the poses being optimised) and `lam`
+    (the damping). Its three parts hand the residuals, the Jacobians and
+    the step on through attributes. In place, so that a CUDA graph
+    captured from a part reads and writes the same memory at every
+    replay."""
+
+    def __init__(self, graph: PoseGraph, lam: torch.Tensor, cg_iterations: int):
+        self.graph, self.lam, self.cg_iterations = graph, lam, cg_iterations
+        self.parts = (self.linearize, self.pcg, self.accept)
+
+    def load(self, g: PoseGraph, init_lambda: float):
+        """Copy g's fields into the buffers and reset the damping."""
+        for f in PoseGraph.__dataclass_fields__:
+            getattr(self.graph, f).copy_(getattr(g, f))
+        self.lam.fill_(init_lambda)
+
+    def linearize(self):
+        self.r, self.Ji, self.Jj = _edge_residuals_and_jacobians(self.graph.node_pose,
+                                                                 self.graph)
+
+    def pcg(self):
+        self.dx = _solve_normal_eqs(self.graph, self.r, self.Ji, self.Jj, self.lam,
+                                    self.cg_iterations)
+
+    def accept(self):
+        poses, lam = self.graph.node_pose, self.lam
+        trial = poses @ lie.se3_exp(self.dx)
+        accept = _graph_cost(self.graph, trial) < _graph_cost(self.graph, poses)
+        poses.copy_(torch.where(accept, trial, poses))
+        lam.copy_(torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-9, 1e6))
+
+
+def _static_step(g: PoseGraph, cfg: PoseGraphConfig) -> _LMStep:
+    """An _LMStep over buffers of its own, shaped and filled as g."""
+    own = {f: getattr(g, f).clone() for f in PoseGraph.__dataclass_fields__}
+    lam = torch.full((), cfg.init_lambda, dtype=torch.float32, device=g.node_pose.device)
+    return _LMStep(g.replace(**own), lam, cfg.cg_iterations)
+
+
+# Captured LM iterations by what shapes them: (device, dtype, max_nodes,
+# max_edges, cg_iterations) -> (_LMStep, its parts' replays). Kept for
+# the process, since each sequence makes a fresh evaluator and graph; the
+# lock keeps one caller at a time on an entry's buffers.
+_CAPTURED: dict = {}
+_CAPTURED_LOCK = threading.Lock()
+WARMUP_ITERATIONS = 3
+_SPANS = ("pose_graph.linearize", "pose_graph.pcg", "pose_graph.accept")
+
+
+def _capture(g: PoseGraph, cfg: PoseGraphConfig):
+    """An _LMStep on g's device with its three parts captured as CUDA
+    graphs, after WARMUP_ITERATIONS eager iterations on a side stream (as
+    torch asks before capturing autograd and cuBLAS work)."""
+    step = _static_step(g, cfg)
+    with torch.cuda.device(g.node_pose.device):
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_ITERATIONS):
+                for part in step.parts:
+                    part()
+        torch.cuda.current_stream().wait_stream(side)
+        graphs = []
+        for part in step.parts:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                part()
+            graphs.append(graph)
+    count("pose_graph.eager_iters", WARMUP_ITERATIONS)
+    count("pose_graph.captures")
+    return step, tuple(graph.replay for graph in graphs)
+
+
+def _iterate(parts, iters: int):
+    for _ in range(iters):
+        for name, part in zip(_SPANS, parts):
+            with span(name):
+                part()
+
+
 def optimize(g: PoseGraph, cfg: PoseGraphConfig, iterations: int | None = None) -> PoseGraph:
     """LM loop: each iteration solves the damped normal equations by PCG,
-    retracts, and accepts or rejects by cost. Each iteration's spans
-    (utils/profiling.span, recorded while a profiler records):
-    pose_graph.linearize (the residuals with their autodiff Jacobians),
-    pose_graph.pcg (_solve_normal_eqs), pose_graph.accept (the retract,
-    the two costs and the accept / reject)."""
+    retracts, and accepts or rejects by cost (_LMStep). On a CUDA device
+    the iteration's three parts replay CUDA graphs, captured at the first
+    call for the graph's device, dtype, capacities and cg_iterations and
+    replayed by every later call, whatever its iteration count; elsewhere
+    they run op by op. Each iteration's spans (utils/profiling.span,
+    recorded while a profiler records): pose_graph.linearize (the
+    residuals with their autodiff Jacobians), pose_graph.pcg
+    (_solve_normal_eqs), pose_graph.accept (the retract, the two costs
+    and the accept / reject). Counters: pose_graph.graphed_iters and
+    pose_graph.eager_iters (iterations replayed and run op by op, a
+    capture's warm-up among the latter), pose_graph.captures."""
     iters = cfg.lm_iterations if iterations is None else iterations
-    poses = g.node_pose
-    lam = torch.tensor(cfg.init_lambda, dtype=torch.float32, device=poses.device)
-    for _ in range(iters):
-        with span("pose_graph.linearize"):
-            r, Ji, Jj = _edge_residuals_and_jacobians(poses, g)
-        with span("pose_graph.pcg"):
-            dx = _solve_normal_eqs(g.replace(node_pose=poses), r, Ji, Jj, lam,
-                                   cfg.cg_iterations)
-        with span("pose_graph.accept"):
-            trial = poses @ lie.se3_exp(dx)
-            accept = _graph_cost(g, trial) < _graph_cost(g, poses)
-            poses = torch.where(accept, trial, poses)
-            lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-9, 1e6)
-    return g.replace(node_pose=poses)
+    if g.node_pose.is_cuda and iters > 0:
+        key = (g.node_pose.device, g.node_pose.dtype, g.node_pose.shape[0],
+               g.edge_i.shape[0], cfg.cg_iterations)
+        with _CAPTURED_LOCK:
+            if key not in _CAPTURED:
+                _CAPTURED[key] = _capture(g, cfg)
+            step, replays = _CAPTURED[key]
+            step.load(g, cfg.init_lambda)
+            count("pose_graph.graphed_iters", iters)
+            _iterate(replays, iters)
+            # a copy: the next call on this entry overwrites its buffers
+            return g.replace(node_pose=step.graph.node_pose.clone())
+    step = _static_step(g, cfg)
+    count("pose_graph.eager_iters", iters)
+    _iterate(step.parts, iters)
+    return g.replace(node_pose=step.graph.node_pose)
 
 
 def get_pose(g: PoseGraph, idx):

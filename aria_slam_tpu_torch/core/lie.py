@@ -183,9 +183,22 @@ def se3_matrix(R, t):
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., None]], -1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                          device=R.device).expand(batch + (4,))
+    bottom = _unit_row(R.dtype, R.device).expand(batch + (4,))
     return torch.cat([top, bottom[..., None, :]], -2)
+
+
+_UNIT_ROWS: dict = {}
+
+
+def _unit_row(dtype, device):
+    """[0, 0, 0, 1], made once per dtype and device: a tensor built from
+    host values is a copy to the device, which a stream capturing a CUDA
+    graph refuses (backend/pose_graph.optimize captures se3_matrix)."""
+    row = _UNIT_ROWS.get((dtype, device))
+    if row is None:
+        row = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dtype, device=device)
+        _UNIT_ROWS[(dtype, device)] = row
+    return row
 
 
 def se3_inverse(T):

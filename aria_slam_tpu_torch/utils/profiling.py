@@ -46,7 +46,10 @@ The port's spans:
 and counters: frontend.matches (the chunk's ratio-passing consecutive
 matches with valid endpoints, before the dynamic mask),
 frontend.dyn_removed (those the dynamic mask removed), loop.verified
-(candidates in a verify batch), loop.accepted (loop edges added).
+(candidates in a verify batch), loop.accepted (loop edges added),
+pose_graph.graphed_iters (LM iterations replayed as CUDA graphs),
+pose_graph.eager_iters (LM iterations run op by op: on the CPU, or the
+warm-up before a capture), pose_graph.captures (captures made).
 
 attribute(prof): for a finished torch.profiler.profile with CPU and CUDA
 activity, each span's launches (kernels, copies and sets whose runtime

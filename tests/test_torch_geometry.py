@@ -20,6 +20,7 @@ from aria_slam_tpu_torch.backend import pose_graph as tpg
 from aria_slam_tpu_torch.core.types import PoseDelta
 from aria_slam_tpu_torch.ops import epipolar as tep
 from aria_slam_tpu_torch.ops import homography as thom
+from aria_slam_tpu_torch.utils import profiling
 
 from torch_parity_util import JaxKeySampler
 
@@ -187,9 +188,10 @@ def test_depths_pins_and_ratios_match():
 
 
 # ------------------------------------------------------------ pose graph
-def test_pose_graph_optimize_matches():
-    """A 12-node chain with drift, one loop edge and gyro-weighted
-    odometry: the optimised poses agree within 1e-4."""
+def _chain_graphs():
+    """Both packages' 12-node chain with drift, one loop edge and
+    gyro-weighted odometry -> (JAX graph, port graph, JAX config, port
+    config)."""
     rng = np.random.default_rng(6)
     kw = dict(max_nodes=16, max_edges=24, lm_iterations=5, cg_iterations=24)
     jc, tc = jcfg.PoseGraphConfig(**kw), tcfg.PoseGraphConfig(**kw)
@@ -211,6 +213,13 @@ def test_pose_graph_optimize_matches():
     loop = np.linalg.inv(poses[2]) @ poses[11]
     gj = jpg.add_loop_edge(gj, 2, 11, jnp.asarray(loop), jc, t_weight=0.5)
     gt = tpg.add_loop_edge(gt, 2, 11, _t(loop), tc, t_weight=0.5)
+    return gj, gt, jc, tc
+
+
+def test_pose_graph_optimize_matches():
+    """A 12-node chain with drift, one loop edge and gyro-weighted
+    odometry: the optimised poses agree within 1e-4."""
+    gj, gt, jc, tc = _chain_graphs()
     for f in tpg.PoseGraph.__dataclass_fields__:
         np.testing.assert_allclose(np.asarray(getattr(gj, f)), getattr(gt, f).numpy(),
                                    atol=1e-6, err_msg=f)
@@ -220,6 +229,29 @@ def test_pose_graph_optimize_matches():
     assert torch.equal(tpg.get_pose(ot, 5), ot.node_pose[5])
     moved = np.abs(np.asarray(oj.node_pose) - np.asarray(gj.node_pose)).max()
     assert moved > 1e-3  # the optimiser did work
+
+
+def test_pose_graph_in_place_step_matches_optimize():
+    """The in-place LM step that optimize captures as CUDA graphs on a
+    card, run op by op here on buffers first filled from an empty graph
+    and then loaded with the chain, gives optimize's poses bit for bit;
+    on the CPU a recorded optimize counts its iterations as eager and
+    captures nothing."""
+    _, gt, _, tc = _chain_graphs()
+    n = 7
+    step = tpg._static_step(tpg.init_graph(tc, "cpu"), tc)
+    step.load(gt, tc.init_lambda)
+    for _ in range(n):
+        for part in step.parts:
+            part()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        out = tpg.optimize(gt, tc, n)
+    counters = profiling.recorded().counters
+    assert torch.equal(step.graph.node_pose, out.node_pose)
+    assert not torch.equal(out.node_pose, gt.node_pose)
+    assert counters.get("pose_graph.eager_iters") == n
+    assert "pose_graph.captures" not in counters
+    assert "pose_graph.graphed_iters" not in counters
 
 
 def test_edge_jacobians_match_jacfwd():
