@@ -30,6 +30,7 @@ from aria_slam_tpu_torch.core.types import Features, KeyframeDB, _TensorTree
 from aria_slam_tpu_torch.ops import epipolar
 from aria_slam_tpu_torch.ops.match import BIG, match_top2_batched, ratio_gate
 from aria_slam_tpu_torch.ops.topk import top_k_stable
+from aria_slam_tpu_torch.utils.profiling import count
 
 PREFILTER_K = 8  # candidates promoted from the histogram ranking to full matching
 
@@ -222,7 +223,9 @@ def detect(db: KeyframeDB, feats: Features, frame_id, K, cfg: LoopClosureConfig,
     Nothing can pass when no top score is above 0, and then the verify is
     skipped and the empty LoopResult returned: the same result, for one
     read on the host a frame, where the verify would cost its launches on
-    every frame without a candidate (most frames)."""
+    every frame without a candidate (most frames). Counters
+    (utils/profiling.count): online.loop_queries (frames that verify),
+    online.loop_verified (their candidates with a top score above 0)."""
     dev = feats.desc.device
     fid = torch.as_tensor(frame_id, dtype=torch.int32, device=dev)
     hist_q = descriptor_histogram(feats.desc, feats.valid)
@@ -233,8 +236,11 @@ def detect(db: KeyframeDB, feats: Features, frame_id, K, cfg: LoopClosureConfig,
     gated = ((cand_fid >= 0) & (fid - cand_fid >= cfg.min_frames_between)
              & (scores >= max(cfg.min_score, cfg.candidate_score_floor)))
     top_scores, top_pos = top_k_stable(torch.where(gated, scores, -1.0), cfg.top_k_candidates)
-    if not bool((top_scores > 0).any()):
+    candidates = int((top_scores > 0).sum())
+    if not candidates:
         return no_loop(dev)
+    count("online.loop_queries")
+    count("online.loop_verified", candidates)
     top_slots = cand_slots[top_pos]
     v = top_slots.shape[0]
 

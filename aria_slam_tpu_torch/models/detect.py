@@ -84,15 +84,18 @@ def make_detector(cfg: DetectorConfig, model: Optional[yolo.Yolo] = None,
     model: a Yolo to use as it is; weights_path: an .npz in the JAX
     package's format (yolo.load_weights); else the JAX package's random
     weights of seed DEFAULT_SEED (yolo.init_model). Runs on CUDA unless `device`
-    says otherwise."""
+    says otherwise. Spans (utils/profiling.span): detect.forward (the
+    resize and the model), detect.post (the gate, the top-k and NMS)."""
     from aria_slam_tpu_torch.pipeline.slam_pipeline import resolve_device
 
     model = _resolve_model(cfg, model, weights_path, resolve_device(device))
 
     def detect(image: torch.Tensor) -> Detections:
         h, w = image.shape
-        bxs, scores = _forward(model, cfg, image)
-        return _postprocess(bxs[0], scores[0], cfg, h, w)
+        with span("detect.forward"):
+            bxs, scores = _forward(model, cfg, image)
+        with span("detect.post"):
+            return _postprocess(bxs[0], scores[0], cfg, h, w)
 
     return detect
 

@@ -50,7 +50,7 @@ from aria_slam_tpu_torch.fusion import ekf
 from aria_slam_tpu_torch.mapping import export, mapper
 from aria_slam_tpu_torch.ops import boxes, epipolar, match as match_ops, orb
 from aria_slam_tpu_torch.ops.undistort import undistort_points
-from aria_slam_tpu_torch.utils.profiling import span
+from aria_slam_tpu_torch.utils.profiling import count, span
 
 # The online EKF runs on the host whatever device the step runs on: a
 # frame's 10-20 predicts and one update are a few dozen 15 x 15 ops each,
@@ -180,11 +180,16 @@ def gyro_rotation(prev_ts, imu_t, imu_gyr, imu_valid, R_ci):
 
 def make_frame_step(cfg: PipelineConfig, sampler, extractor: Optional[Callable] = None,
                     matcher: Optional[Callable] = None, device="cuda",
-                    detector: Optional[Callable] = None):
+                    detector: Optional[Callable] = None, timer=None):
     """Build the per-frame step with injected components. The loop
     verification draws from `sampler` with the stages "loop_essential" /
     "loop_homography"; `detector` (image (H, W) -> Detections) runs when
-    cfg.enable_detection."""
+    cfg.enable_detection. Spans (utils/profiling.span), each handed
+    `timer` (the StageTimer interface, or None): online.extract (ORB and
+    the undistortion), online.detect (the detector and the box test),
+    online.match, online.pose (the gyro rotation, RANSAC, the pins and
+    scale, the pose and its graph node), online.map, online.loop_detect,
+    online.db_insert."""
     K = torch.as_tensor(cfg.camera.K, device=device)
     R_ci = torch.tensor(cfg.imu_cam_rotation, dtype=torch.float32, device=device)
     extractor = extractor or (lambda img: orb.extract(img, cfg.orb))
@@ -199,102 +204,113 @@ def make_frame_step(cfg: PipelineConfig, sampler, extractor: Optional[Callable] 
     def step(state: FrameState, image, imu_t, imu_acc, imu_gyr, imu_valid, ts):
         image = image.to(torch.float32)  # uint8 uploads are exact
         dev = image.device
-        feats = extractor(image)
-        feats = feats.replace(xy=undistort_points(feats.xy, cfg.camera))
-        dets = detect(image) if detect is not None else no_dets
+        with span("online.extract", timer):
+            feats = extractor(image)
+            feats = feats.replace(xy=undistort_points(feats.xy, cfg.camera))
+        # the detector and the box test of every keypoint
+        with span("online.detect", timer):
+            dets = detect(image) if detect is not None else no_dets
+            in_dyn = (boxes.points_in_dynamic_boxes(feats.xy, dets)
+                      if cfg.enable_dynamic_filtering else None)
 
         # matching (query = current, train = previous), then the dynamic
         # filter on the current keypoints
-        m = matcher(feats, state.prev_feats)
-        m_valid = m.valid & state.prev_valid
-        pre_filter = m_valid.to(torch.int32).sum()
-        if cfg.enable_dynamic_filtering:
-            in_dyn = boxes.points_in_dynamic_boxes(feats.xy, dets)
-            m_valid = m_valid & ~in_dyn[m.query_idx.long()]
-        num_matches = m_valid.to(torch.int32).sum()
+        with span("online.match", timer):
+            m = matcher(feats, state.prev_feats)
+            m_valid = m.valid & state.prev_valid
+            pre_filter = m_valid.to(torch.int32).sum()
+            if in_dyn is not None:
+                m_valid = m_valid & ~in_dyn[m.query_idx.long()]
+            num_matches = m_valid.to(torch.int32).sum()
 
-        # epipolar VO with the gyro rotation fused where IMU is present
-        xy_cur, xy_prev, _ = epipolar.gather_correspondences(feats.xy, state.prev_feats.xy, m)
-        if cfg.gyro_chain_rotation:
-            Rg = gyro_rotation(state.prev_ts, imu_t, imu_gyr, imu_valid, R_ci)
-            has_g = (imu_valid.to(torch.int32).sum() >= 2) & state.prev_valid
-            focal = 0.5 * (K[0, 0] + K[1, 1])
-            thresh_sq = (cfg.ransac.inlier_threshold_px / focal) ** 2
-            delta = epipolar.estimate_pose_gyro_fused(
-                xy_prev, xy_cur, m_valid, K, cfg.ransac, sampler, Rg, has_g, thresh_sq)
-        else:
-            delta = epipolar.estimate_relative_pose(
-                xy_prev, xy_cur, m_valid, K, cfg.ransac, sampler)
-            has_g = torch.tensor(False, device=dev)
-        vo_ok = delta.success & state.prev_valid
-
-        # metric scale: "propagate" chains it through features shared with
-        # the previous pair, "median_depth" pins every frame to the scene
-        # depth, "unit" keeps |t| = 1
-        nf = feats.valid.shape[0]
-        qidx = m.query_idx.long()
-        if cfg.vo_scale_mode in ("median_depth", "propagate"):
-            z1, z2, zgood = epipolar.pair_depths(delta, xy_prev, xy_cur, m_valid, K)
-            pz, pgood = epipolar.pin_depths(delta, xy_prev, xy_cur, m_valid, K,
-                                            cfg.vo_pin_estimator, cfg.vo_pin_sigma_px)
-            pin, _ = epipolar.pin_scale(pz, pgood, cfg.vo_scene_depth)
-            if cfg.vo_scale_mode == "propagate":
-                tidx = m.train_idx.long()
-                shared = zgood & state.prev_depth_mask[tidx]
-                ratio, cnt = epipolar.geomean_ratio(state.prev_depths[tidx], z1, shared)
-                scale = torch.where(cnt >= 10, state.vo_scale * ratio, pin)
+        with span("online.pose", timer):
+            # epipolar VO with the gyro rotation fused where IMU is present
+            xy_cur, xy_prev, _ = epipolar.gather_correspondences(feats.xy, state.prev_feats.xy,
+                                                                 m)
+            if cfg.gyro_chain_rotation:
+                Rg = gyro_rotation(state.prev_ts, imu_t, imu_gyr, imu_valid, R_ci)
+                has_g = (imu_valid.to(torch.int32).sum() >= 2) & state.prev_valid
+                focal = 0.5 * (K[0, 0] + K[1, 1])
+                thresh_sq = (cfg.ransac.inlier_threshold_px / focal) ** 2
+                delta = epipolar.estimate_pose_gyro_fused(
+                    xy_prev, xy_cur, m_valid, K, cfg.ransac, sampler, Rg, has_g, thresh_sq)
             else:
-                scale = pin
-            scale = torch.clamp(scale, 0.01, 100.0)
-            t_use = delta.t * scale
-            new_depths = torch.zeros((nf,), device=dev).index_put(
-                (qidx,), torch.where(zgood, z2, 0.0))
-            new_dmask = torch.zeros((nf,), dtype=torch.bool, device=dev).index_put(
-                (qidx,), zgood) & vo_ok
-            new_scale = torch.where(vo_ok, scale, state.vo_scale)
-        else:
-            t_use = delta.t
-            new_depths = torch.zeros((nf,), device=dev)
-            new_dmask = torch.zeros((nf,), dtype=torch.bool, device=dev)
-            new_scale = state.vo_scale
-        T_cur_prev = lie.se3_matrix(delta.R, t_use)
-        pose_new = torch.where(vo_ok, state.pose @ lie.se3_inverse(T_cur_prev), state.pose)
+                delta = epipolar.estimate_relative_pose(
+                    xy_prev, xy_cur, m_valid, K, cfg.ransac, sampler)
+                has_g = torch.tensor(False, device=dev)
+            vo_ok = delta.success & state.prev_valid
 
-        # pose graph: a node every frame, its odometry edge only when VO
-        # succeeded
-        node_id = state.frame_id + 1
-        graph = pose_graph.set_node(state.graph, node_id, pose_new)
-        rel = lie.se3_inverse(state.pose) @ pose_new
-        graph_with_edge = pose_graph.add_odometry_edge(
-            graph, node_id - 1, node_id, rel, cfg.pose_graph,
-            r_weight=torch.where(has_g, cfg.pose_graph.gyro_rot_weight, 1.0))
-        graph = pose_graph.select(vo_ok, graph_with_edge, graph)
+            # metric scale: "propagate" chains it through features shared with
+            # the previous pair, "median_depth" pins every frame to the scene
+            # depth, "unit" keeps |t| = 1
+            nf = feats.valid.shape[0]
+            qidx = m.query_idx.long()
+            if cfg.vo_scale_mode in ("median_depth", "propagate"):
+                z1, z2, zgood = epipolar.pair_depths(delta, xy_prev, xy_cur, m_valid, K)
+                pz, pgood = epipolar.pin_depths(delta, xy_prev, xy_cur, m_valid, K,
+                                                cfg.vo_pin_estimator, cfg.vo_pin_sigma_px)
+                pin, _ = epipolar.pin_scale(pz, pgood, cfg.vo_scene_depth)
+                if cfg.vo_scale_mode == "propagate":
+                    tidx = m.train_idx.long()
+                    shared = zgood & state.prev_depth_mask[tidx]
+                    ratio, cnt = epipolar.geomean_ratio(state.prev_depths[tidx], z1, shared)
+                    scale = torch.where(cnt >= 10, state.vo_scale * ratio, pin)
+                else:
+                    scale = pin
+                scale = torch.clamp(scale, 0.01, 100.0)
+                t_use = delta.t * scale
+                new_depths = torch.zeros((nf,), device=dev).index_put(
+                    (qidx,), torch.where(zgood, z2, 0.0))
+                new_dmask = torch.zeros((nf,), dtype=torch.bool, device=dev).index_put(
+                    (qidx,), zgood) & vo_ok
+                new_scale = torch.where(vo_ok, scale, state.vo_scale)
+            else:
+                t_use = delta.t
+                new_depths = torch.zeros((nf,), device=dev)
+                new_dmask = torch.zeros((nf,), dtype=torch.bool, device=dev)
+                new_scale = state.vo_scale
+            T_cur_prev = lie.se3_matrix(delta.R, t_use)
+            pose_new = torch.where(vo_ok, state.pose @ lie.se3_inverse(T_cur_prev),
+                                   state.pose)
+
+            # pose graph: a node every frame, its odometry edge only when VO
+            # succeeded
+            node_id = state.frame_id + 1
+            graph = pose_graph.set_node(state.graph, node_id, pose_new)
+            rel = lie.se3_inverse(state.pose) @ pose_new
+            graph_with_edge = pose_graph.add_odometry_edge(
+                graph, node_id - 1, node_id, rel, cfg.pose_graph,
+                r_weight=torch.where(has_g, cfg.pose_graph.gyro_rot_weight, 1.0))
+            graph = pose_graph.select(vo_ok, graph_with_edge, graph)
 
         # mapping: the inlier matches triangulated against the previous
         # frame (camera-from-world ends), coloured from this image
         map_state = state.map_state
         if cfg.enable_mapping:
-            map_state = mapper.add_from_matches(
-                map_state, K, lie.se3_inverse(state.pose), lie.se3_inverse(pose_new),
-                xy_prev, xy_cur, m_valid & delta.inlier_mask & vo_ok, image, cfg.mapper)
+            with span("online.map", timer):
+                map_state = mapper.add_from_matches(
+                    map_state, K, lie.se3_inverse(state.pose), lie.se3_inverse(pose_new),
+                    xy_prev, xy_cur, m_valid & delta.inlier_mask & vo_ok, image, cfg.mapper)
 
         # loop closure: query BEFORE inserting the current frame
         db = state.db
         if cfg.enable_loop_closure:
-            loop = loop_closure.detect(
-                db, feats, state.frame_id, K, cfg.loop, cfg.ransac, loop_sampler,
-                cfg.vo_scale_mode, cfg.vo_scene_depth, depths=new_depths,
-                depth_mask=new_dmask, depth_scale=new_scale)
-            cur_slot = db.head.long().reshape(1)  # where the insert puts this frame
-            db = keyframe_db.add_keyframe(db, feats, state.frame_id, pose_new)
-            # an accepted loop pair observes the same scene: link it in the
-            # covisibility graph, unless the insert just evicted the
-            # matched keyframe (at capacity the oldest slot, which passes
-            # the gap gate most easily); no loop links nothing
-            link = (loop.detected & (loop.slot != cur_slot[0])).reshape(1)
-            a = torch.where(link, loop.slot.long(), cur_slot)
-            for ij in ((a, cur_slot), (cur_slot, a)):
-                db.covis.index_put_(ij, db.covis[ij] | link)
+            with span("online.loop_detect", timer):
+                loop = loop_closure.detect(
+                    db, feats, state.frame_id, K, cfg.loop, cfg.ransac, loop_sampler,
+                    cfg.vo_scale_mode, cfg.vo_scene_depth, depths=new_depths,
+                    depth_mask=new_dmask, depth_scale=new_scale)
+            with span("online.db_insert", timer):
+                cur_slot = db.head.long().reshape(1)  # where the insert puts this frame
+                db = keyframe_db.add_keyframe(db, feats, state.frame_id, pose_new)
+                # an accepted loop pair observes the same scene: link it in
+                # the covisibility graph, unless the insert just evicted the
+                # matched keyframe (at capacity the oldest slot, which passes
+                # the gap gate most easily); no loop links nothing
+                link = (loop.detected & (loop.slot != cur_slot[0])).reshape(1)
+                a = torch.where(link, loop.slot.long(), cur_slot)
+                for ij in ((a, cur_slot), (cur_slot, a)):
+                    db.covis.index_put_(ij, db.covis[ij] | link)
         else:
             loop = loop_closure.no_loop(dev)
 
@@ -325,19 +341,26 @@ class SlamPipeline:
     the trajectory after `flush` or `finalize`. detector: image (H, W) ->
     Detections on the step's device, run when config.enable_detection
     (pipeline/factory.py builds one from the config's weights).
+    timer: handed to the step's spans (make_frame_step) and to
+    online.publish (the frame's read, `fetch`, with its EKF step,
+    online.ekf) and online.loop_optimize (the loop edge and the graph's
+    optimisation, pose_graph.*); a synchronising timer charges each
+    stage its device work. Counters: online.frames, online.loops (loops
+    applied); loop_closure.detect counts the queries it verifies.
     """
 
     def __init__(self, config: PipelineConfig | None = None, *, device=None,
                  extractor=None, matcher=None, detector=None, sampler=None, seed: int = 0,
-                 lazy_depth: int = 0):
+                 lazy_depth: int = 0, timer=None):
         self.config = config or PipelineConfig()
         self.device = resolve_device(device)
         if sampler is None:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(seed)
             sampler = epipolar.TorchSampler(gen)
+        self._timer = timer
         self._step = make_frame_step(self.config, sampler, extractor, matcher, self.device,
-                                     detector)
+                                     detector, timer)
         self.state = init_state(self.config, self.device)
         self._ekf_consts = ekf._Consts(self.config.ekf, torch.float32, ekf_device(self.device))
         self._imu_buf: list = []
@@ -389,6 +412,7 @@ class SlamPipeline:
 
     # parity: processFrame(data, w, h, ts) -> Pose
     def process_frame(self, image: np.ndarray, timestamp: float) -> np.ndarray | None:
+        count("online.frames")
         ts = self._rel(timestamp)
         imu = self._drain_imu(timestamp)
         dev = self.device
@@ -410,9 +434,11 @@ class SlamPipeline:
                  loops_at_dispatch: int) -> np.ndarray:
         """Read a dispatched frame's results (one copy), run its EKF step,
         apply its loop and append its pose to the trajectory."""
-        pose, vo_ok, detected = fetch_many([out.pose, out.vo_success, out.loop.detected])
-        if self.config.enable_fusion:
-            self._fuse(imu, ts, pose, vo_ok)
+        with span("online.publish", self._timer):
+            pose, vo_ok, detected = fetch_many([out.pose, out.vo_success, out.loop.detected])
+            if self.config.enable_fusion:
+                with span("online.ekf"):
+                    self._fuse(imu, ts, pose, vo_ok)
         out.fused_pos, out.fused_quat = self.state.ekf_state.pos, self.state.ekf_state.quat
         if detected:
             self._handle_loop(out, node_id)
@@ -454,17 +480,20 @@ class SlamPipeline:
         loop's query frame is node node_id; the matched keyframe's frame
         id f is node f + 1 (node 0 is the origin before the first frame)."""
         cfgpg = self.config.pose_graph
-        fid, twt, score = fetch_many([out.loop.frame_id, out.loop.t_weight, out.loop.score])
-        # T_rel maps current-cam points into matched-cam coordinates,
-        # T_{matched<-current}: with world-from-camera nodes the edge (i =
-        # matched, j = current) measures T_i^-1 T_j, which is T_rel itself
-        g = pose_graph.add_loop_edge(self.state.graph, int(fid) + 1, node_id, out.loop.T_rel,
-                                     cfgpg, t_weight=float(twt))
-        g = pose_graph.optimize(g, cfgpg)
-        # rebase the running pose on the newest dispatched node (in lazy
-        # mode frames after the loop's query frame already exist)
-        self.state = self.state.replace(graph=g,
-                                        pose=pose_graph.get_pose(g, self.state.frame_id))
+        with span("online.loop_optimize", self._timer):
+            fid, twt, score = fetch_many([out.loop.frame_id, out.loop.t_weight,
+                                          out.loop.score])
+            # T_rel maps current-cam points into matched-cam coordinates,
+            # T_{matched<-current}: with world-from-camera nodes the edge (i =
+            # matched, j = current) measures T_i^-1 T_j, which is T_rel itself
+            g = pose_graph.add_loop_edge(self.state.graph, int(fid) + 1, node_id,
+                                         out.loop.T_rel, cfgpg, t_weight=float(twt))
+            g = pose_graph.optimize(g, cfgpg)
+            # rebase the running pose on the newest dispatched node (in lazy
+            # mode frames after the loop's query frame already exist)
+            self.state = self.state.replace(graph=g,
+                                            pose=pose_graph.get_pose(g, self.state.frame_id))
+        count("online.loops")
         self.num_loops += 1
         self.loop_pairs.append((int(fid), node_id - 1))
         if self.on_loop is not None:

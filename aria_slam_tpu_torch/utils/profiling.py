@@ -32,9 +32,16 @@ The port's spans:
       chunk_ba, imu_scale, loop_query (fetch), state_update,
       backbone_edges, loop_verify (fetch), loop_optimize (pose_graph.*);
       finalize.optimize (pose_graph.*) in finalize
+  pipeline/slam_pipeline.SlamPipeline   online.extract, online.detect
+      (detect.forward and detect.post, the box test), online.match,
+      online.pose, online.map, online.loop_detect,
+      online.db_insert, each frame's step; online.publish (fetch,
+      online.ekf) as each frame publishes; online.loop_optimize (fetch,
+      pose_graph.*) as it applies a loop
   backend/pose_graph.optimize   pose_graph.linearize, pose_graph.pcg,
       pose_graph.accept, each LM iteration
-  models/detect.make_batched_detector   detect.forward, detect.post
+  models/detect.make_batched_detector, make_detector   detect.forward,
+      detect.post
   eval/multi_eval.make_multi_chunk_frontend   multi.extract,
       multi.match, multi.ransac, multi.pins
   eval/multi_eval.run_scenes   round, decode_wait, frontend, chain
@@ -47,6 +54,9 @@ and counters: frontend.matches (the chunk's ratio-passing consecutive
 matches with valid endpoints, before the dynamic mask),
 frontend.dyn_removed (those the dynamic mask removed), loop.verified
 (candidates in a verify batch), loop.accepted (loop edges added),
+online.frames (frames SlamPipeline stepped), online.loop_queries (frames
+whose gated top score passed, so loop_closure.detect verified),
+online.loop_verified (their candidates), online.loops (loops applied),
 pose_graph.graphed_iters (LM iterations replayed as CUDA graphs),
 pose_graph.eager_iters (LM iterations run op by op: on the CPU, or the
 warm-up before a capture), pose_graph.captures (captures made).
